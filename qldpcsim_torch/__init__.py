@@ -7,8 +7,8 @@ the repository unchanged). Modules mirror the reference's layout and names:
   * `utils.threefry`, `parallel.keys` — the reference's threefry key chain
     (seed -> p-index -> global tile), bit-exact;
   * `channel` — the depolarizing channel and syndromes;
-  * `decoders` — the circulant-lifted (QC) min-sum decoder and the windowed
-    straggler cascade;
+  * `decoders` — the circulant-lifted (QC) min-sum and BP decoders, the
+    windowed straggler cascade, and the OSD post-decoder;
   * `engine` — classification counters and the Monte-Carlo loop
     (`ShotPipeline`, `simulate_p`);
   * `ops` — the hand-written CUDA kernels (`csrc/*.cu`) and their plain

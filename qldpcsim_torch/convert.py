@@ -8,7 +8,9 @@ last two into the port's:
   * `keys_from_reference` — numpy uint32 key words (as `jax.random` keys are
     stored) -> the port's int64 key tensors;
   * `qc_tables_from_reference` — the reference's `QCStructure` and
-    block-row layer groups -> the QC min-sum decoder's shift and group tables.
+    block-row layer groups -> the QC decoder's shift and group tables;
+  * `osd_static_from_reference` — the reference's `OSDStatic` (packed
+    columns of H, rank) -> the OSD post-decoder's tensors.
 """
 
 from __future__ import annotations
@@ -119,3 +121,31 @@ def qc_tables_from_reference(st: QCStructure,
                     slot_s=np.asarray(slot_s, i32),
                     group_ptr=np.asarray(group_ptr, i32),
                     group_snap=np.asarray(group_snap, i32))
+
+
+@dataclasses.dataclass(frozen=True)
+class OSDTables:
+    """Static tensors of the OSD post-decoder: H is (m, n) of rank r; cols
+    (n, mW) int32 holds column j of H packed LSB-first over the checks in
+    32-bit words (the uint32 bits of the reference's `cols_packed`); rW
+    words cover r tag bits."""
+
+    m: int
+    n: int
+    r: int
+    mW: int
+    rW: int
+    cols: torch.Tensor
+
+
+def osd_static_from_reference(st, device: Union[str, torch.device] = "cpu"
+                              ) -> OSDTables:
+    """The reference's `OSDStatic` (or the port's, which has the same
+    fields) -> `OSDTables` on `device`."""
+    cols = np.ascontiguousarray(np.asarray(st.cols_packed))
+    if cols.dtype != np.uint32 or cols.shape != (st.n, st.mW):
+        raise ValueError(f"expected ({st.n}, {st.mW}) uint32 packed columns, "
+                         f"got {cols.shape} {cols.dtype}")
+    return OSDTables(m=int(st.m), n=int(st.n), r=int(st.r), mW=int(st.mW),
+                     rW=int(st.rW),
+                     cols=torch.as_tensor(cols.view(np.int32), device=device))

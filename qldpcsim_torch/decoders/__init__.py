@@ -1,9 +1,10 @@
 """Batched syndrome decoders (port of `qldpcsim_tpu/decoders`).
 
-This slice carries normalized min-sum over circulant-lifted (QC) parity-check
-matrices under the flooding (F) and layered (L) schedules, wrapped in the
-straggler cascade. Every other decoder, schedule or matrix raises
-`NotImplementedError` naming the ROADMAP slice that brings it.
+The port carries normalized min-sum (MS) and tanh-product sum-product (BP)
+over circulant-lifted (QC) parity-check matrices under the flooding (F) and
+layered (L) schedules, wrapped in the straggler cascade, and the OSD
+post-decoder (`decoders/osd.py`). Every other decoder, schedule or matrix
+raises `NotImplementedError` naming the ROADMAP slice that brings it.
 """
 
 from qldpcsim_torch.decoders.common import (
@@ -26,14 +27,13 @@ __all__ = [
 ]
 
 _LATER = {
-    "BP": "BP comes with the config-5 slice (ROADMAP queue 1, 'Config 5')",
     "BF": "BF comes with the non-QC slice (ROADMAP queue 1, 'Non-QC codes')",
     "NG": "NG comes with the non-QC slice (ROADMAP queue 1, 'Non-QC codes')",
 }
 
 
 def _qc_factory(graph, cfg, eff_layers, device):
-    """QC min-sum decoder factory for `graph`, or raise
+    """QC decoder factory (MS or BP) for `graph`, or raise
     NotImplementedError for what this slice does not carry (the reference's
     `_try_qc_factory`, without its TPU gate: on a CUDA device the kernel
     runs, on the CPU its plain version)."""
@@ -78,7 +78,7 @@ def make_decoder(graph, cfg, layers=None, device="cpu"):
     kind = cfg.dec_type.upper()
     if kind in _LATER:
         raise NotImplementedError(_LATER[kind])
-    if kind != "MS":
+    if kind not in ("MS", "BP"):
         raise ValueError("Unrecognized decoder type.")
     eff_layers = (layers if layers is not None
                   else build_layers(graph.H, cfg.schedule.upper()))

@@ -4,8 +4,8 @@
 A batched decode runs until every shot has converged, so at realistic p a
 few hard shots would drag the whole batch to max_iter. The cascade decodes
 the full batch at a shallow iteration cap, then re-decodes the unconverged
-tail from scratch at each deeper stage's cap, in fixed-size windows. MS is a
-deterministic function of the syndrome, so a from-scratch re-decode
+tail from scratch at each deeper stage's cap, in fixed-size windows. MS and
+BP are deterministic functions of the syndrome, so a from-scratch re-decode
 reproduces the continued trajectory exactly: results, posteriors and
 iteration counts are bit-identical to one full-depth decode, whatever the
 windows.

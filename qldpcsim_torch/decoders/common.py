@@ -170,14 +170,14 @@ def build_layers(H_decode: np.ndarray, schedule: str,
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """Decoder configuration: the reference's fields that this slice reads,
-    with the reference's defaults. The BP, BF and OSD fields come with their
-    slices."""
+    """Decoder configuration: the reference's fields that the port reads,
+    with the reference's defaults. The BF fields come with their slice."""
 
     dec_type: str = "MS"          # NG | BF | MS | BP
     max_iter: int = 99
     schedule: str = "F"           # F | L | S
     beta: float = 0.75            # MS normalization
+    eps: float = 1e-6             # BP: extrinsic tanh clamped to 1 - eps
     round1_iters: int = 0         # two-round cascade head: 0 = auto stage
                                   # plan, -1 = no cascade
     compact_cap_frac: float = 0.125

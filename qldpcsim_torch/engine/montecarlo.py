@@ -1,15 +1,16 @@
 """Monte-Carlo qBLER engine (port of `qldpcsim_tpu/engine/montecarlo.py`).
 
 Per p-point: per-tile threefry keys -> depolarizing channel and syndromes ->
-X and Z decodes (the straggler cascade around the QC min-sum decoder) ->
-classification counters, summed over chunks. The key chain is the
-reference's (seed -> p-index -> global tile, 64-shot tiles), so a run's
-counters equal the reference's on its threefry path, and do not depend on
-the device or the batch size.
+X and Z decodes (the straggler cascade around the QC MS or BP decoder) ->
+OSD over each side's decoder-failed shots, when enabled -> classification
+counters, summed over chunks. The key chain is the reference's (seed ->
+p-index -> global tile, 64-shot tiles), so a run's counters equal the
+reference's on its threefry path, and do not depend on the device or the
+batch size.
 
-On `device="cuda"` the channel and the decoder run as the CUDA kernels of
-`ops/`; on `device="cpu"` their plain PyTorch versions run. A CUDA device
-without a card raises; nothing falls back.
+On `device="cuda"` the channel, the decoder and OSD's elimination run as
+the CUDA kernels of `ops/`; on `device="cpu"` their plain PyTorch versions
+run. A CUDA device without a card raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from qldpcsim_torch.decoders import (
     build_layers,
     make_decoder,
 )
+from qldpcsim_torch.decoders.osd import OSD
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_torch.engine.results import PPointResult
 from qldpcsim_torch.parallel.keys import chunk_keys
@@ -50,6 +52,9 @@ _COUNTER_KEYS = (
 # Chunks whose tile keys are derived in one pass (bounds the key buffer).
 _KEY_GROUP_CHUNKS = 128
 
+# Shots per OSD call (the reference's window cap, min(batch, 256)).
+_OSD_WINDOW = 256
+
 
 @dataclasses.dataclass
 class SimConfig:
@@ -60,7 +65,8 @@ class SimConfig:
     dec_type: str = "MS"
     dec_iterations: int = 99
     dec_schedule: str = "F"
-    osd_order: int = -1
+    osd_order: int = -1           # OSD post-decoder order (MS, BP); -1 off
+    eps: float = 1e-6             # BP tanh clamp (DecoderConfig.eps)
     rng_seed: Optional[int] = None
     batch_size: int = 0           # 0 = auto
     layer_compat: bool = False    # reproduce the reference's cross-wired
@@ -77,6 +83,7 @@ class SimConfig:
             dec_type=self.dec_type,
             max_iter=self.dec_iterations,
             schedule=self.dec_schedule,
+            eps=self.eps,
             impl=self.impl,
         )
 
@@ -107,14 +114,12 @@ def _resolve_device(name: str) -> torch.device:
 
 class ShotPipeline(nn.Module):
     """Per-(code, decoder-config) shot pipeline on one device, reusable
-    across p."""
+    across p: the X and Z decoders, OSD over each side's decoder-failed
+    shots when `cfg.osd_order >= 0` (MS and BP, as the reference), and the
+    classifier. `osd_shots` counts the shots each side sent to OSD."""
 
     def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig):
         super().__init__()
-        if cfg.osd_order >= 0:
-            raise NotImplementedError(
-                "OSD comes with the config-5 slice (ROADMAP queue 1, "
-                "'Config 5')")
         if cfg.validate_encoding:
             raise NotImplementedError(
                 "validate_encoding comes with the user-surface slice "
@@ -141,6 +146,12 @@ class ShotPipeline(nn.Module):
                                   layers=layers_x, device=self.device)
         self.dec_z = make_decoder(TannerGraph.build(self.Hx), dcfg,
                                   layers=layers_z, device=self.device)
+        self.use_osd = (cfg.osd_order >= 0
+                        and dcfg.dec_type.upper() in ("MS", "BP"))
+        if self.use_osd:
+            self.osd_x = OSD(self.Hz, cfg.osd_order, device=self.device)
+            self.osd_z = OSD(self.Hx, cfg.osd_order, device=self.device)
+        self.osd_shots = {"x": 0, "z": 0}
         self.classifier = ClassifierStatic.build(self.Hx, self.Hz,
                                                  device=self.device)
         for name, H in (("Hx_T", self.Hx), ("Hz_T", self.Hz)):
@@ -158,17 +169,49 @@ class ShotPipeline(nn.Module):
 
     def _chunk_body(self, tile_keys: torch.Tensor, p, n_valid: int
                     ) -> Dict[str, torch.Tensor]:
-        """One chunk: sample, decode both sides, classify -> 0-d counters.
-        tile_keys: (tiles_per_chunk, 2) int64, one key per global tile."""
+        """One chunk: sample, decode both sides [+ OSD], classify -> 0-d
+        counters. tile_keys: (tiles_per_chunk, 2) int64, one key per global
+        tile."""
         err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
         valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
+        ex_hat, ez_hat, it_x, it_z = self._decode(sy_z, sy_x, p, valid)
+        return self._count(err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, it_x,
+                           it_z, valid)
+
+    def _decode(self, sy_z, sy_x, p, valid):
+        """Both sides' decodes, then OSD over each side's decoder-failed
+        valid shots -> (ex_hat, ez_hat, n_iter_x, n_iter_z)."""
         # the reference's prior p/3 (float32, as the reference's jitted
         # `p / 3.0` on a float32 p)
         prior = np.float32(p) / np.float32(3.0)
         res_x = self.dec_x(sy_z, prior)
         res_z = self.dec_z(sy_x, prior)
-        return self._count(err_x, err_z, res_x.e_hat, res_z.e_hat, sy_z,
-                           sy_x, res_x.n_iter, res_z.n_iter, valid)
+        ex_hat, ez_hat = res_x.e_hat, res_z.e_hat
+        if self.use_osd:
+            ex_hat = self._apply_osd(self.osd_x, ex_hat, res_x.posterior,
+                                     sy_z, ~res_x.converged & valid)
+            ez_hat = self._apply_osd(self.osd_z, ez_hat, res_z.posterior,
+                                     sy_x, ~res_z.converged & valid)
+        return ex_hat, ez_hat, res_x.n_iter, res_z.n_iter
+
+    def _apply_osd(self, osd: OSD, e_hat, post, syn, failed):
+        """`osd` over the `failed` shots of a batch, in windows of at most
+        256 shots taken in lane-ascending order (the reference's in-chunk
+        `_apply_osd`). OSD acts shot by shot, so the windows do not change
+        the result, and the counters equal the reference's in-chunk and
+        deferred paths alike. `torch.nonzero` costs one host sync per side
+        per chunk: the window count."""
+        order = torch.nonzero(failed).flatten()
+        n_failed = int(order.numel())
+        self.osd_shots["x" if osd is self.osd_x else "z"] += n_failed
+        if n_failed == 0:
+            return e_hat
+        cap = min(e_hat.shape[0], _OSD_WINDOW)
+        out = e_hat.clone()
+        for lo in range(0, n_failed, cap):
+            idx = order[lo:lo + cap]
+            out[idx] = osd(e_hat[idx], syn[idx], post[idx])
+        return out
 
     def _multi_chunk_body(self, keys: torch.Tensor, p, n_valids
                           ) -> Dict[str, torch.Tensor]:

@@ -19,8 +19,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qldpcsim_torch"
@@ -79,6 +80,15 @@ def load(name: str) -> ctypes.CDLL:
         err.argtypes = [ctypes.c_int]
         _LIBS[name] = lib
     return lib
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build the named sources at once (one nvcc process each), then load
+    them: a cold start waits for the slowest build, not for their sum."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(_build, names))
+    for name in names:
+        load(name)
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:

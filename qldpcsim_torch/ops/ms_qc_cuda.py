@@ -1,33 +1,40 @@
-"""Normalized min-sum over a circulant-lifted H: CUDA kernel B
+"""Message passing over a circulant-lifted H: CUDA kernel B
 (`csrc/ms_qc.cu`), its wrapper, its plain PyTorch version, and the QC
-decoder module around them.
+decoder module around them, for two check-node kinds.
 
 Replaces the TPU kernel `qldpcsim_tpu/ops/ms_qc_pallas.py::_make_kernel`
-(kind "MS", built by `make_qc_decoder`). It computes what that kernel
-computes, in the same float32 order of operations, per block-row of each
-layer group:
+(kind "MS" and kind "BP", built by `make_qc_decoder`). It computes what that
+kernel computes, in the same float32 order of operations, per block-row of
+each layer group (v = roll(snapshot[j], s) - c2v, slot by slot):
 
-    v2c   = roll(snapshot[j], s) - c2v              (slot by slot)
-    m1/m2 = running min / second min (strict `a < m1`), 1e30 -> 0
+  MS (normalized min-sum):
+    m1/m2 = running min / second min of |v| (strict `a < m1`), 1e30 -> 0
     par   = neg_par - 2 floor(neg_par / 2)
-    c2v'  = ((beta * syn_sign) * (1 - 2 par)) * (mag - 2 (neg * mag)),
-            mag = m2 where |v2c| == m1 else m1
+    c2v'  = ((beta * ss) * (1 - 2 par)) * (mag - 2 (neg * mag)),
+            mag = m2 where |v| == m1 else m1
+  BP (tanh-product sum-product):
+    t     = sgn(tanh(v * 0.5)) * max(|tanh(v * 0.5)|, 1e-12)    per slot
+    prod  = sgn(prod * t) * max(|prod * t|, 1e-30)               running
+    th2   = clip(prod / t, -(1 - eps), 1 - eps)
+    c2v'  = ss * log((1 + th2) / (1 - th2))
+  both:
     post[j] += roll back(c2v' - c2v)                 (frozen lanes: += 0)
 
-and one syndrome check per iteration. Lanes never interact, so the kernel
-gives each shot its own thread and loop and exits it at convergence, which is
-exactly the Pallas kernel's freeze of converged lanes. The plain version runs
-all lanes together until every lane has converged or max_iter is reached,
-masking the updates of converged lanes as the Pallas kernel does; its rolls
-are index arithmetic (r + s) mod L.
+with ss = 1 - 2 syndrome, and one syndrome check per iteration. Lanes never
+interact, so the kernel gives each shot its own thread and loop and exits it
+at convergence, which is exactly the Pallas kernel's freeze of converged
+lanes. The plain version runs all lanes together until every lane has
+converged or max_iter is reached, masking the updates of converged lanes as
+the Pallas kernel does; its rolls are index arithmetic (r + s) mod L.
 
 `ms_qc` runs the kernel for CUDA tensors and the plain version for CPU
-tensors. `LAUNCHES` counts kernel launches.
+tensors. `LAUNCHES[kind]` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -42,8 +49,10 @@ from qldpcsim_torch.decoders.common import (
 )
 from qldpcsim_torch.ops import _build
 from qldpcsim_torch.ops.qc import QCStructure, block_groups_of_layers
+from qldpcsim_torch.utils.f32math import xla_cpu_logf
 
-LAUNCHES = 0
+KINDS = ("MS", "BP")
+LAUNCHES = {kind: 0 for kind in KINDS}
 
 _PRIOR_EPS = np.float32(1e-9)
 _BIG = 1e30  # stand-in for +inf in the min reductions, as in the reference
@@ -53,15 +62,48 @@ _KERNEL_MAX_DEG = 32  # largest block-row degree ms_qc.cu is instantiated for
 def llr_prior(p) -> float:
     """Channel LLR log((1 - p) / max(p, 1e-9)) of a float32 p, on the host.
 
-    The quotient is formed in float32 as in the reference; the log is taken in
-    float64 and rounded to float32 (correctly rounded), which equals the
-    reference's XLA float32 log at the engine's p points (pinned by the
-    tests; XLA's log differs by one ulp at about 2 % of other float32
-    inputs, see ROADMAP queue 3). Kernel and plain version share this one
-    value."""
+    The quotient is formed in float32 as in the reference, and the log is
+    XLA:CPU's float32 log (`utils/f32math.py`), so the prior equals the
+    reference's bit for bit at every float32 p. Kernel and plain version
+    share this one value."""
     p = np.float32(p)
     x = (np.float32(1.0) - p) / np.maximum(p, _PRIOR_EPS)
-    return float(np.float32(np.log(np.float64(x))))
+    return float(xla_cpu_logf(x))
+
+
+def _bp_row(t_raw: torch.Tensor, clamp: float, ss: torch.Tensor
+            ) -> torch.Tensor:
+    """BP check-node update of one block-row: t_raw = tanh(v / 2) per slot
+    (deg, L, B) -> extrinsic messages (deg, L, B)."""
+    t = torch.where(t_raw < 0.0, -1.0, 1.0) * torch.clamp_min(t_raw.abs(),
+                                                               1e-12)
+    prod = torch.ones_like(t[0])
+    for d in range(t.shape[0]):
+        prod = prod * t[d]
+        prod = torch.where(prod < 0.0, -1.0, 1.0) * torch.clamp_min(
+            prod.abs(), 1e-30)
+    th2 = torch.clamp(prod / t, -clamp, clamp)
+    return ss * torch.log((1.0 + th2) / (1.0 - th2))
+
+
+def _ms_row(v: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Normalized min-sum check-node update of one block-row: v (deg, L, B),
+    coef = beta * ss (L, B) -> extrinsic messages (deg, L, B)."""
+    L, B = v.shape[1:]
+    a = v.abs()
+    neg = (v < 0.0).to(torch.float32)
+    m1 = torch.full((L, B), _BIG, dtype=torch.float32, device=v.device)
+    m2 = torch.full((L, B), _BIG, dtype=torch.float32, device=v.device)
+    for d in range(v.shape[0]):
+        is_new = a[d] < m1
+        m2 = torch.where(is_new, m1, torch.minimum(m2, a[d]))
+        m1 = torch.where(is_new, a[d], m1)
+    m1 = torch.where(m1 >= _BIG, 0.0, m1)
+    m2 = torch.where(m2 >= _BIG, 0.0, m2)
+    neg_par = neg.sum(dim=0)
+    par = neg_par - 2.0 * torch.floor(neg_par * 0.5)
+    mag = torch.where(a == m1, m2, m1)
+    return (coef * (1.0 - 2.0 * par)) * (mag - 2.0 * (neg * mag))
 
 
 def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
@@ -76,7 +118,8 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     c2v = torch.zeros((tabs.n_slots, L, B), dtype=f32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     n_iter = torch.full((B,), dec.max_iter, dtype=torch.int32, device=dev)
-    coef_base = dec.beta * (1.0 - 2.0 * syn_T)          # (m, B): beta * ss
+    ss = 1.0 - 2.0 * syn_T                               # (m, B)
+    coef_base = dec.beta * ss                            # MS: beta * ss
     gidx = [getattr(dec, f"gidx{i}") for i in range(tabs.m_b)]
     for it in range(dec.max_iter):
         if bool(done.all()):
@@ -89,21 +132,11 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
                 idx = gidx[i]                            # (deg * L,)
                 row = c2v[k0:k1]                         # (deg, L, B)
                 v = src[idx].view(k1 - k0, L, B) - row
-                a = v.abs()
-                neg = (v < 0.0).to(f32)
-                m1 = torch.full((L, B), _BIG, dtype=f32, device=dev)
-                m2 = torch.full((L, B), _BIG, dtype=f32, device=dev)
-                for d in range(k1 - k0):
-                    is_new = a[d] < m1
-                    m2 = torch.where(is_new, m1, torch.minimum(m2, a[d]))
-                    m1 = torch.where(is_new, a[d], m1)
-                m1 = torch.where(m1 >= _BIG, 0.0, m1)
-                m2 = torch.where(m2 >= _BIG, 0.0, m2)
-                neg_par = neg.sum(dim=0)
-                par = neg_par - 2.0 * torch.floor(neg_par * 0.5)
-                coef = coef_base[i * L:(i + 1) * L] * (1.0 - 2.0 * par)
-                mag = torch.where(a == m1, m2, m1)
-                new = coef * (mag - 2.0 * (neg * mag))
+                if dec.kind == "MS":
+                    new = _ms_row(v, coef_base[i * L:(i + 1) * L])
+                else:
+                    new = _bp_row(torch.tanh(v * 0.5), dec.clamp,
+                                  ss[i * L:(i + 1) * L])
                 new_row = torch.where(active, new, row)
                 delta = new_row - row
                 c2v[k0:k1] = new_row
@@ -119,7 +152,6 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
 
 def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     """Kernel B: the contract of `ms_qc_plain`, on the card."""
-    global LAUNCHES
     tabs = dec.tabs
     if syn_T.dtype != torch.float32 or syn_T.dim() != 2 \
             or syn_T.shape[0] != tabs.m or not syn_T.is_contiguous():
@@ -136,8 +168,8 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     lib = _build.load("ms_qc")
     fn = lib.ms_qc_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_float] + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 11)
     post = torch.empty((tabs.n, B), dtype=torch.float32, device=dev)
     c2v = torch.empty((tabs.n_slots * tabs.L, B), dtype=torch.float32,
@@ -146,7 +178,8 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(syn_T.data_ptr(), B, lch, dec.beta, dec.max_iter, tabs.L,
+    rc = fn(syn_T.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
+            dec.clamp, dec.max_iter, tabs.L,
             tabs.m_b, tabs.n_b, len(tabs.group_snap), tabs.max_deg,
             tabs.n_slots,
             dec.row_ptr.data_ptr(), dec.slot_j.data_ptr(),
@@ -155,7 +188,7 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
             None if snap is None else snap.data_ptr(),
             n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "ms_qc", rc)
-    LAUNCHES += 1
+    LAUNCHES[dec.kind] += 1
     return post, n_iter, conv
 
 
@@ -189,7 +222,7 @@ def layer_groups_for(st: QCStructure, cfg: DecoderConfig,
 
 class QCDecoder(nn.Module):
     """decode(syndromes, p) -> DecodeResult over a circulant-lifted H
-    (the reference's `make_qc_decoder(..., kind="MS")`).
+    (the reference's `make_qc_decoder`), kind `cfg.dec_type` (MS or BP).
 
     Static tables live as int32 buffers on `device`; syndromes must lie on
     the same device. The schedule is 'F' (one snapshot pass over all
@@ -200,16 +233,19 @@ class QCDecoder(nn.Module):
                  layers: Optional[LayerSchedule] = None,
                  device="cpu"):
         super().__init__()
-        if cfg.dec_type.upper() != "MS":
-            raise NotImplementedError(
-                "the QC decoder of this slice is min-sum only; BP-QC comes "
-                "with the config-5 slice (ROADMAP queue 1, 'Config 5')")
+        self.kind = cfg.dec_type.upper()
+        if self.kind not in KINDS:
+            raise ValueError(f"the QC decoder runs kinds {KINDS}, got "
+                             f"{cfg.dec_type!r}")
         if cfg.qc_check_every != "iter":
             raise NotImplementedError(
                 "qc_check_every='layer' is not ported yet (ROADMAP queue 1)")
         self.tabs: QCTables = qc_tables_from_reference(
             st, layer_groups_for(st, cfg, layers))
         self.beta = float(np.float32(cfg.beta))
+        # BP clamp: 1 - eps in float64, as Python forms it in the reference,
+        # then rounded to float32
+        self.clamp = float(np.float32(1.0 - float(cfg.eps)))
         self.max_iter = int(cfg.max_iter)
         i32 = torch.int32
         t = self.tabs
@@ -242,3 +278,12 @@ def make_qc_decoder(st: QCStructure, cfg: DecoderConfig,
                     layers: Optional[LayerSchedule] = None, device="cpu"
                     ) -> QCDecoder:
     return QCDecoder(st, cfg, layers=layers, device=device)
+
+
+def make_bp_qc_decoder(st: QCStructure, cfg: DecoderConfig,
+                       layers: Optional[LayerSchedule] = None, device="cpu"
+                       ) -> QCDecoder:
+    """The BP kind of `make_qc_decoder`, whatever cfg.dec_type says (the
+    reference's `make_bp_qc_decoder`)."""
+    return QCDecoder(st, dataclasses.replace(cfg, dec_type="BP"),
+                     layers=layers, device=device)

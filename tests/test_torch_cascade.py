@@ -1,6 +1,6 @@
 """The port's straggler cascade is bit-identical to one full-depth decode,
 and equal to the reference's make_cascade over the Pallas kernel (interpret
-mode). make_decoder routes what this slice carries and raises for the rest."""
+mode). make_decoder routes what the port carries and raises for the rest."""
 
 import numpy as np
 import pytest
@@ -104,7 +104,8 @@ def test_stage_plan_and_windows():
 
 
 @pytest.mark.parametrize("code,cfg,err", [
-    ("lp04_0", DecoderConfig(dec_type="BP"), NotImplementedError),
+    ("lp04_0", DecoderConfig(dec_type="BP", schedule="S"),
+     NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="BF"), NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="NG"), NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="XX"), ValueError),

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from qldpcsim_torch.codes import get_code
+from qldpcsim_torch.convert import osd_static_from_reference
 from qldpcsim_torch.decoders import DecoderConfig, build_layers
+from qldpcsim_torch.decoders.osd import OSD, OSDStatic
 from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
-from qldpcsim_torch.ops import _build, channel_cuda, ms_qc_cuda
+from qldpcsim_torch.ops import _build, channel_cuda, gf2_elim_cuda, ms_qc_cuda
 from qldpcsim_torch.ops.qc import detect_qc
 from qldpcsim_torch.parallel.keys import chunk_keys
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -36,11 +38,20 @@ def _syndromes(seed, H, n_shots, p, device):
     return torch.from_numpy(syn).to(device)
 
 
-def _decoder(H, sched, device, max_iter=50):
+def _decoder(H, sched, device, max_iter=50, kind="MS"):
     return ms_qc_cuda.make_qc_decoder(
-        detect_qc(H), DecoderConfig(dec_type="MS", max_iter=max_iter,
+        detect_qc(H), DecoderConfig(dec_type=kind, max_iter=max_iter,
                                     schedule=sched),
         layers=build_layers(H, sched), device=device)
+
+
+def _permuted_columns(code, B, seed, device):
+    st = OSDStatic.build(np.asarray(get_code(code).Hz) % 2)
+    rng = np.random.default_rng(seed)
+    perms = torch.from_numpy(np.stack([rng.permutation(st.n)
+                                       for _ in range(B)]))
+    cols = osd_static_from_reference(st, device=device).cols
+    return st, cols[perms.to(device)]
 
 
 def test_wrappers_reject_malformed_input():
@@ -59,6 +70,17 @@ def test_wrappers_reject_malformed_input():
                                                dtype=torch.float64), 1.0)
 
 
+@pytest.mark.parametrize("shape,dtype,r,rW", [
+    ((4, 175, 3), torch.int64, 78, 3),      # wrong word type
+    ((4, 175), torch.int32, 78, 3),         # not (B, n, mW)
+    ((4, 175, 3), torch.int32, 78, 2),      # tag words do not cover r
+    ((4, 175, 3), torch.int32, 97, 4),      # rank beyond the check words
+])
+def test_gf2_elim_wrapper_rejects_malformed_input(shape, dtype, r, rW):
+    with pytest.raises(ValueError):
+        gf2_elim_cuda.eliminate_cuda(torch.zeros(shape, dtype=dtype), r, rW)
+
+
 def test_other_devices_raise():
     keys = torch.zeros(2, 2, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
@@ -67,6 +89,9 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         ms_qc_cuda.ms_qc(_decoder(H, "L", "cpu", max_iter=4),
                          torch.zeros(H.shape[0], 8, device="meta"), 1.0)
+    with pytest.raises(ValueError):
+        gf2_elim_cuda.eliminate(torch.zeros((2, 175, 3), dtype=torch.int32,
+                                            device="meta"), 78, 3)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -74,6 +99,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError):
         _build.nvcc_path()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError):
+        _build.load_all(["channel", "gf2_elim"])
 
 
 @pytest.mark.cuda
@@ -97,12 +125,70 @@ def test_ms_qc_kernel_equals_plain(cuda_device, code, sched):
     dec = _decoder(H, sched, cuda_device)
     syn_T = _syndromes(7, H, 300, 0.05, cuda_device).T.contiguous()
     lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
-    before = ms_qc_cuda.LAUNCHES
+    before = ms_qc_cuda.LAUNCHES["MS"]
     kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
     pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
-    assert ms_qc_cuda.LAUNCHES == before + 1
+    assert ms_qc_cuda.LAUNCHES["MS"] == before + 1
     assert kc.any() and ki.max() > 1
     assert torch.equal(kp, pp) and torch.equal(ki, pi) and torch.equal(kc, pc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,sched", [
+    ("lp118_0", "F"), ("lp118_0", "L"), ("lp04_0", "F"),
+])
+def test_bp_qc_kernel_equals_plain(cuda_device, code, sched):
+    """Kernel B, kind BP: tanhf, logf and IEEE division, as torch's tanh,
+    log and `/` on the card, so bit for bit, posterior included."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = _decoder(H, sched, cuda_device, max_iter=30, kind="BP")
+    syn_T = _syndromes(8, H, 300, 0.05, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.03) / np.float32(3.0))
+    before = dict(ms_qc_cuda.LAUNCHES)
+    kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
+    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
+    assert ms_qc_cuda.LAUNCHES == dict(before, BP=before["BP"] + 1)
+    assert kc.any() and not kc.all()
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,B", [("lp118_0", 300), ("lp04_0", 64)])
+def test_gf2_elim_kernel_equals_plain(cuda_device, code, B):
+    st, colsP = _permuted_columns(code, B, 9, cuda_device)
+    before = gf2_elim_cuda.LAUNCHES
+    kt, kp, ks = gf2_elim_cuda.eliminate(colsP, st.r, st.rW)
+    pt, pp, ps = gf2_elim_cuda.eliminate_plain(colsP, st.r, st.rW)
+    assert gf2_elim_cuda.LAUNCHES == before + 1
+    assert (kp >= 0).all() and (ks.sum(dim=1) == st.r).all()
+    assert torch.equal(kt, pt) and torch.equal(kp, pp) and torch.equal(ks, ps)
+
+
+@pytest.mark.cuda
+def test_osd_on_card_equals_cpu(cuda_device):
+    """OSD-2 over the same inputs on the card (kernel C) and on the CPU
+    (plain elimination): the same estimates."""
+    H = np.asarray(get_code("lp118_0").Hz) % 2
+    rng = np.random.default_rng(10)
+    e_hat = torch.from_numpy((rng.random((100, H.shape[1])) < 0.05)
+                             .astype(np.int8))
+    syn = torch.from_numpy(((rng.random((100, H.shape[1])) < 0.05)
+                            .astype(np.int64) @ H.T % 2).astype(np.float32))
+    # posteriors of distinct magnitudes up to 8, 8/544 apart: their
+    # reliabilities lie far more than exp's last-ulp differences between
+    # the devices apart, so both devices order the columns alike (equal
+    # magnitudes of opposite sign would tie only up to that ulp)
+    mags = np.stack([rng.permutation(H.shape[1]) + 1 for _ in range(100)])
+    signs = rng.choice([-1.0, 1.0], size=mags.shape)
+    post = torch.from_numpy((signs * mags * (8.0 / H.shape[1]))
+                            .astype(np.float32))
+    on_cpu = OSD(H, 2)(e_hat, syn, post)
+    before = gf2_elim_cuda.LAUNCHES
+    on_card = OSD(H, 2, device=cuda_device)(
+        e_hat.to(cuda_device), syn.to(cuda_device), post.to(cuda_device))
+    assert gf2_elim_cuda.LAUNCHES == before + 1
+    assert torch.equal(on_card.cpu(), on_cpu)
 
 
 @pytest.mark.cuda
@@ -112,11 +198,11 @@ def test_simulate_p_on_card_equals_cpu(cuda_device):
                     dec_schedule="L", batch_size=512, rng_seed=3,
                     device="cpu")
     on_cpu = simulate_p(c.Hx, c.Hz, 0.05, cfg)
-    launches = (channel_cuda.LAUNCHES, ms_qc_cuda.LAUNCHES)
+    launches = (channel_cuda.LAUNCHES, ms_qc_cuda.LAUNCHES["MS"])
     on_card = simulate_p(c.Hx, c.Hz, 0.05,
                          dataclasses.replace(cfg, device="cuda"))
     assert channel_cuda.LAUNCHES == launches[0] + 2
-    assert ms_qc_cuda.LAUNCHES >= launches[1] + 4
+    assert ms_qc_cuda.LAUNCHES["MS"] >= launches[1] + 4
     assert on_card.counters == on_cpu.counters
     assert on_card.avg_iterations_x == on_cpu.avg_iterations_x
     assert on_card.avg_iterations_z == on_cpu.avg_iterations_z

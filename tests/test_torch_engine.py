@@ -1,7 +1,8 @@
 """The port's simulate_p (CPU, plain versions) end to end: counters
 bit-exact with a reference pipeline put together from the JAX package's own
-functions over the same key chain, and qBLER within 4 sigma of the JAX
-package's simulate_p."""
+functions over the same key chain (min-sum, with and without OSD), and
+qBLER within 4 sigma of the JAX package's simulate_p (min-sum, and BP with
+OSD-2)."""
 
 import dataclasses
 import math
@@ -18,6 +19,7 @@ from qldpcsim_tpu.decoders import DecoderConfig as RefConfig
 from qldpcsim_tpu.decoders import TannerGraph as RefGraph
 from qldpcsim_tpu.decoders import build_layers as ref_build_layers
 from qldpcsim_tpu.decoders.cascade import make_cascade
+from qldpcsim_tpu.decoders.osd import make_osd as ref_make_osd
 from qldpcsim_tpu.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_tpu.engine.montecarlo import SimConfig as RefSimConfig
 from qldpcsim_tpu.engine.montecarlo import simulate_p as ref_simulate_p
@@ -91,6 +93,53 @@ def _reference_counters(Hx, Hz, p, shots, batch, seed, p_index, max_iter):
     return totals
 
 
+def _reference_osd_counters(Hx, Hz, p, shots, batch, seed, max_iter, order):
+    """The reference's chunk body with OSD, from its own functions:
+    chunk_keys -> sample_shot_tiles -> make_ms_qc_decoder (layered, Pallas
+    in interpret mode) -> make_osd(platform="cpu") over each side's
+    decoder-failed shots -> classify_batch. max_iter <= 12, so no
+    cascade."""
+    n = Hx.shape[1]
+    cfg = RefConfig(dec_type="MS", max_iter=max_iter, schedule="L")
+
+    def decoder(H):
+        return make_ms_qc_decoder(detect_qc(H), cfg,
+                                  layers=ref_build_layers(H, "L"), B_blk=32,
+                                  interpret=True)
+
+    dec_x, dec_z = decoder(Hz), decoder(Hx)
+    # OSD acts shot by shot: run it jitted over whole chunks and keep the
+    # failed shots' results (one compile per side)
+    osd_x = jax.jit(ref_make_osd(Hz, order, platform="cpu"))
+    osd_z = jax.jit(ref_make_osd(Hx, order, platform="cpu"))
+    classifier = ClassifierStatic.build(Hx, Hz)
+    Hx_T, Hz_T = Hx.T.astype(np.float32), Hz.T.astype(np.float32)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0)
+    tpc = batch // 64
+    totals = {}
+    for c in range(-(-shots // batch)):
+        err_x, err_z, sy_z, sy_x = sample_shot_tiles(
+            chunk_keys(key, c * tpc, tpc), jnp.float32(p), n, 64, Hx_T, Hz_T)
+        valid = np.arange(batch) < min(batch, shots - c * batch)
+        prior = jnp.float32(p) / 3.0
+        ests = []
+        for dec, osd, syn in ((dec_x, osd_x, sy_z), (dec_z, osd_z, sy_x)):
+            r = dec(syn, prior)
+            failed = ~np.asarray(r.converged) & valid
+            e = np.where(failed[:, None],
+                         np.asarray(osd(r.e_hat, syn, r.posterior)),
+                         np.asarray(r.e_hat))
+            ests.append((e, r.n_iter))
+        counts = classify_batch(classifier, err_x, err_z, ests[0][0],
+                                ests[1][0], sy_z, sy_x,
+                                valid=jnp.asarray(valid))
+        counts["nIterAccX"] = jnp.sum(jnp.where(valid, ests[0][1], 0))
+        counts["nIterAccZ"] = jnp.sum(jnp.where(valid, ests[1][1], 0))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + int(v)
+    return totals
+
+
 def _counters(res):
     return dict(res.counters,
                 nIterAccX=round(res.avg_iterations_x * res.shots),
@@ -126,6 +175,45 @@ def test_qbler_within_4_sigma_of_reference_simulate_p():
     assert "SIMULATION RESULTS" in format_results_table([res])
 
 
+def test_osd_counters_bit_exact_with_reference_pipeline():
+    """MS-L + OSD-2 on lp04_0 at a depth and p where the decoder fails often:
+    the 9 counters equal the reference chain's, so OSD ran on shared
+    posteriors with the same reliability order and gave the same
+    estimates."""
+    c = get_code("lp04_0")
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    cfg = SimConfig(shots=200, dec_type="MS", dec_iterations=8,
+                    dec_schedule="L", osd_order=2, batch_size=128,
+                    rng_seed=6, device="cpu")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    res = simulate_p(Hx, Hz, 0.08, cfg, pipeline=pipe)
+    ref = _reference_osd_counters(Hx, Hz, 0.08, 200, 128, 6, 8, 2)
+    assert _counters(res) == ref
+    assert pipe.osd_shots["x"] > 0 and pipe.osd_shots["z"] > 0
+    # OSD turned some decoder failures into successes
+    no_osd = simulate_p(Hx, Hz, 0.08, dataclasses.replace(cfg, osd_order=-1))
+    assert res.counters["decSuccessExact"] > \
+        no_osd.counters["decSuccessExact"]
+
+
+def test_bp_osd_qbler_within_4_sigma_of_reference_simulate_p():
+    """BP-F + OSD-2 on lp04_0: BP's tanh and log differ in the last ulp
+    between XLA and torch on the CPU (ROADMAP queue 3), so qBLER is held to
+    4 sigma of the JAX package's simulate_p, not bit for bit."""
+    c = get_code("lp04_0")
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    shots, p = 1024, 0.08
+    kw = dict(shots=shots, dec_type="BP", dec_iterations=20,
+              dec_schedule="F", osd_order=2, batch_size=512, rng_seed=5)
+    ref = ref_simulate_p(Hx, Hz, p, RefSimConfig(**kw, device="cpu"))
+    res = simulate_p(Hx, Hz, p, SimConfig(**kw, device="cpu"))
+    for a, b in ((ref.qbler, res.qbler), (ref.qbler_honest, res.qbler_honest)):
+        pool = (a + b) / 2
+        sigma = math.sqrt(max(pool * (1 - pool), 1e-12) * 2 / shots)
+        assert abs(a - b) <= 4 * sigma, (a, b)
+    assert 0.0 < res.qbler < 1.0
+
+
 def test_counters_do_not_depend_on_the_batch():
     """The per-tile key contract: any chunking of the same tile stream gives
     the same counters."""
@@ -147,7 +235,7 @@ def test_batch_and_tile_sizes():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(osd_order=2), NotImplementedError),
+    (dict(dec_type="BF", osd_order=2), NotImplementedError),
     (dict(validate_encoding=True), NotImplementedError),
     (dict(checkpoint_dir="ckpt"), NotImplementedError),
     (dict(device="mps"), ValueError),

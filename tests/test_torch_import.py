@@ -26,6 +26,8 @@ print(",".join(bad))
     "",
     "import qldpcsim_torch.engine.montecarlo, qldpcsim_torch.convert",
     "from qldpcsim_torch import simulate_p, SimConfig, codes, gf2",
+    "import qldpcsim_torch.decoders.osd, qldpcsim_torch.ops.gf2_elim_cuda, "
+    "qldpcsim_torch.utils.f32math",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -79,7 +79,8 @@ def test_zero_syndrome_converges_at_once():
     assert not o.e_hat.any()
 
 
-@pytest.mark.parametrize("p", [1e-4, 0.01, 0.02, 0.05, 0.1])
+@pytest.mark.parametrize("p", [1e-4, 0.01, 0.02, 0.05, 0.1, 1e-5, 0.001,
+                               0.03, 0.06, 0.07, 0.08, 0.12, 0.3])
 def test_llr_prior_equals_reference(p):
     """The engine's prior p/3 and the decoder tests' p points give the same
     float32 LLR as the reference's XLA log."""
@@ -115,8 +116,8 @@ def test_unsupported_options_raise():
     st = detect_qc(np.asarray(get_code("lp04_0").Hz) % 2)
     with pytest.raises(NotImplementedError):
         ms_qc_cuda.make_qc_decoder(st, DecoderConfig(qc_check_every="layer"))
-    with pytest.raises(NotImplementedError):
-        ms_qc_cuda.make_qc_decoder(st, DecoderConfig(dec_type="BP"))
+    with pytest.raises(ValueError):
+        ms_qc_cuda.make_qc_decoder(st, DecoderConfig(dec_type="BF"))
     with pytest.raises(ValueError):
         ms_qc_cuda.make_qc_decoder(st, DecoderConfig(schedule="S"))
 
