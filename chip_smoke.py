@@ -6,8 +6,8 @@
 Phases (any failure raises and exits non-zero):
   1. toolchain: Python, torch and CUDA versions, nvcc, the card's name and
      power limit;
-  2. build the three CUDA kernels from `qldpcsim_torch/csrc/*.cu` with nvcc,
-     one process per source, all at once;
+  2. build the four CUDA kernels from `qldpcsim_torch/csrc/*.cu` with nvcc,
+     one process per source, all at once, with their register counts;
   3. kernel A (threefry depolarizing channel) against its plain PyTorch
      version on the card: the flagship chunk's 64 tiles x 64 x 544 at
      p = 0.01 and 0.05, bit-exact;
@@ -23,20 +23,45 @@ Phases (any failure raises and exits non-zero):
      shots of a BP decode at p = 0.05 in the port's reliability order,
      topped up with random orders; tags, pivots and sel bit-exact;
   7. the flagship path: `simulate_p` on lp118_0 (normalized min-sum,
-     layered, 50 iterations, p = 0.05, 4096-shot chunks, 262,144 shots) on
+     layered, 50 iterations, p = 0.05, 4096-shot chunks, 65,536 shots) on
      the card, with the launch counts of its kernels, then a CUDA-event
      breakdown of a chunk into channel, decode X, decode Z and classify;
   8. the flagship's first two chunks through the port on the CPU (plain
      versions) against the same chunks on the card: all 9 counters equal;
   9. config 5: `simulate_p` on lp118_0 (BP, flooding, 99 iterations, OSD-2,
-     p = 0.03, 4096-shot chunks, 262,144 shots) on the card, with the
+     p = 0.03, 4096-shot chunks, 65,536 shots) on the card, with the
      launch counts of its kernels and the shots that reached OSD, then a
      CUDA-event breakdown of a chunk into channel, decode X, decode Z, OSD
      and classify;
  10. config 5's first two chunks on the CPU against the card: both counter
      sets, the shots whose final estimates differ (BP's tanh and log may
      round differently in the last ulp on the two devices), and qBLER
-     within 4 sigma.
+     within 4 sigma;
+ 11. kernel D, kind MS (serial min-sum over a circulant-lifted H), against
+     its plain version on the card, Tanner code, both sides, syndromes from
+     the port's channel at p = 0.07: 4096 shots at the cascade head's 4
+     iterations, and a 128-shot window at the full 30 iterations on side X
+     (the plain version takes ~50 small launches per check row, so its
+     depth is cut to keep the phase short); n_iter, converged and e_hat
+     equal, the posterior equal by value; the kernel alone is also timed at
+     4096 shots and 30 iterations;
+ 12. kernel D, kind BP: the same comparison;
+ 13. config 4: `simulate` on the Tanner code files (min-sum, serial, 30
+     iterations, p = 0.01, 0.04, 0.07, 0.1, 65,536 shots each, seed 0) on
+     the card, uncut; per p the counters, qBLER, iterations, warm shots/s,
+     launches and lanes per cascade stage; for p = 0.01 and 0.1 a
+     CUDA-event breakdown of a chunk, and at p = 0.1 the high-p guard;
+     then the same entry point with BP on 2 chunks, which drives kernel D's
+     BP kind;
+ 14. config 4's first two chunks at p = 0.04 on the CPU against the card:
+     all 9 counters equal.
+
+Each kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over the card's 3.35 TB/s and its operations over 67 Top/s
+(the float32 rate outside the tensor cores; integer work is counted against
+the same rate, the table of peaks having none for it), for the iterations
+and columns this run's data needed. No single PyTorch call computes any of
+the kernels' functions, so `library_ms` is null throughout.
 
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when torch
@@ -62,15 +87,33 @@ BREAKDOWN_CHUNKS = 16
 P_POINT = 0.05
 MAX_ITER = 50
 SCHEDULE = "L"
-SHOTS = 64 * BATCH
+SHOTS = 16 * BATCH
 # config 5: BP, flooding, 99 iterations, OSD-2, p = 0.03
 C5_P = 0.03
 C5_ITER = 99
 C5_SCHEDULE = "F"
 C5_ORDER = 2
-C5_SHOTS = 64 * BATCH
+C5_SHOTS = 16 * BATCH
 ELIM_P = 0.05      # the BP decode that fills kernel C's window
 ELIM_WINDOW = 256  # the engine's OSD window
+# config 4: Tanner code, min-sum, serial, 30 iterations, a p-sweep
+C4_FILES = ("data/Hx_T.npy", "data/Hz_T.npy")
+C4_P = [0.01, 0.04, 0.07, 0.1]
+C4_ITER = 30
+C4_SHOTS = 16 * BATCH
+C4_BREAKDOWN_CHUNKS = 8
+C4_BP_SHOTS = 2 * BATCH   # the BP variant of the sweep (kernel D, kind BP)
+SEQ_P = 0.07              # syndromes of the kernel D comparison
+SEQ_HEAD_ITER = 4         # the cascade head's depth, at the full batch
+SEQ_TAIL_SHOTS = 128      # the last stage's window, at the full depth
+# peaks of one H100 SXM: device memory rate, float32 outside tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# operations per edge and iteration: min-sum's compares, selects and adds;
+# BP adds two transcendentals (~20 each) and two IEEE divisions (~8 each)
+OPS_MS = 15
+OPS_BP = 71
+OPS_DRAW = 84  # threefry2x32, 20 rounds, and the threshold compares
 
 
 def check(cond, what):
@@ -102,9 +145,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def breakdown(pipe, p, names, smi):
-    """Mean CUDA-event milliseconds of the spans of a chunk over
-    BREAKDOWN_CHUNKS chunks (not part of any launch count)."""
+def bound(n_bytes, n_ops):
+    """(least milliseconds the card could take, which side bounds it)."""
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * n_ops / PEAK_OPS_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0):
+    """Mean CUDA-event milliseconds of the spans of a chunk over `chunks`
+    chunks of the key branch `p_index` (not part of any launch count)."""
     import numpy as np
     import torch
 
@@ -113,11 +167,11 @@ def breakdown(pipe, p, names, smi):
 
     dev = pipe.device
     tpc = BATCH // 64
-    key_p = fold_in(prng_key(SEED, device=dev), 0)
+    key_p = fold_in(prng_key(SEED, device=dev), p_index)
     prior = np.float32(p) / np.float32(3.0)
     spans = np.zeros(len(names))
     valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
-    for ci in range(BREAKDOWN_CHUNKS):
+    for ci in range(chunks):
         ev = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(names) + 1)]
         kk = chunk_keys(key_p, ci * tpc, tpc)
@@ -141,11 +195,11 @@ def breakdown(pipe, p, names, smi):
         ev[-1].synchronize()
         spans += [ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
         check(int(counts["decSuccessExact"]) <= BATCH, "breakdown counts")
-    spans /= BREAKDOWN_CHUNKS
+    spans /= chunks
     total = spans.sum()
     parts = ", ".join(f"{nm} {s:.4f} ({100 * s / total:.1f}%)"
                       for nm, s in zip(names, spans))
-    print(f"  chunk breakdown (CUDA events, mean of {BREAKDOWN_CHUNKS} "
+    print(f"  chunk breakdown (CUDA events, mean of {chunks} "
           f"chunks, ms): {parts}, total {total:.4f}  [{smi}]")
 
 
@@ -166,10 +220,10 @@ def main():
     from qldpcsim_torch.decoders import DecoderConfig, build_layers
     from qldpcsim_torch.decoders.osd import OSD, reliability_order
     from qldpcsim_torch.engine.montecarlo import (
-        ShotPipeline, SimConfig, simulate_p)
+        ShotPipeline, SimConfig, simulate, simulate_p)
     from qldpcsim_torch.engine.results import PPointResult
     from qldpcsim_torch.ops import (
-        _build, channel_cuda, gf2_elim_cuda, ms_qc_cuda)
+        _build, channel_cuda, gf2_elim_cuda, ms_qc_cuda, seq_qc_cuda)
     from qldpcsim_torch.ops.qc import detect_qc
     from qldpcsim_torch.parallel.keys import chunk_keys
     from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -184,12 +238,15 @@ def main():
         gf2_elim_cuda.LAUNCHES = 0
         for k in ms_qc_cuda.LAUNCHES:
             ms_qc_cuda.LAUNCHES[k] = 0
+            seq_qc_cuda.LAUNCHES[k] = 0
 
     def read_launches():
         return {"channel": channel_cuda.LAUNCHES,
                 "ms_qc MS": ms_qc_cuda.LAUNCHES["MS"],
                 "ms_qc BP": ms_qc_cuda.LAUNCHES["BP"],
-                "gf2_elim": gf2_elim_cuda.LAUNCHES}
+                "gf2_elim": gf2_elim_cuda.LAUNCHES,
+                "seq_qc MS": seq_qc_cuda.LAUNCHES["MS"],
+                "seq_qc BP": seq_qc_cuda.LAUNCHES["BP"]}
 
     def phase(name):
         print(f"--- {name} (at {time.perf_counter() - t_start:.1f} s)",
@@ -209,7 +266,7 @@ def main():
 
     # 2. build, one nvcc per source, all at once
     phase("2 build")
-    sources = ("channel", "ms_qc", "gf2_elim")
+    sources = ("channel", "ms_qc", "gf2_elim", "seq_qc")
     t0 = time.perf_counter()
     _build.load_all(sources)
     print(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s "
@@ -247,8 +304,10 @@ def main():
                                                           64), 50)
     a_plain = cuda_ms(lambda: channel_cuda.sample_tiles_plain(keys, P_POINT,
                                                               n, 64), 10)
+    a_bound = bound(nbytes(keys, kx, kz), kx.numel() * OPS_DRAW)
     print(f"channel ({BATCH // 64} tiles x 64 x {n}): kernel {a_ms:.4f} ms, "
-          f"plain {a_plain:.4f} ms  [{smi}]")
+          f"plain {a_plain:.4f} ms, bound {a_bound[0]:.6f} ms "
+          f"({a_bound[1]})  [{smi}]")
 
     def syndromes_at(p):
         ex, ez = channel_cuda.sample_tiles_cuda(keys, p, n, 64)
@@ -274,14 +333,18 @@ def main():
                 and torch.equal(kp, pp))
         k_ms = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(dec, syn_T, lch), reps)
         p_ms = cuda_ms(lambda: ms_qc_cuda.ms_qc_plain(dec, syn_T, lch), 1)
+        ops = OPS_MS if dec.kind == "MS" else OPS_BP
+        bnd = bound(nbytes(syn_T, kp, ki, kc),
+                    dec.tabs.n_slots * dec.tabs.L * int(ki.sum()) * ops)
         print(f"{label} (B={syn_T.shape[1]}, {dec.max_iter} it): converged "
               f"{int(kc.sum())}, mean n_iter {float(ki.float().mean()):.4f}; "
               f"vs plain: n_iter differs on {int((ki != pi).sum())}, "
               f"converged on {int((kc != pc).sum())}, e_hat on {diff_shots} "
               f"shots, posterior elements differing "
               f"{int((kp != pp).sum())}, max|post diff| {err}; kernel "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms  [{smi}]")
-        return k_ms, p_ms, err, same
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.6f} ms "
+              f"({bnd[1]}, sum n_iter {int(ki.sum())})  [{smi}]")
+        return k_ms, p_ms, err, same, bnd
 
     # 4. kernel B, kind MS, against its plain version
     phase("4 kernel B, kind MS")
@@ -292,11 +355,11 @@ def main():
     for sched in (SCHEDULE, "F"):
         for side, H in (("X", Hz), ("Z", Hx)):
             dec = qc_decoder(H, "MS", MAX_ITER, sched)
-            k_ms, p_ms, err, same = compare_qc(
+            k_ms, p_ms, err, same, bnd = compare_qc(
                 f"ms_qc MS {sched} side {side}", dec,
                 syn[side].T.contiguous(), lch, 5)
             worst_b = max(worst_b, err)
-            b_times[(sched, side)] = (k_ms, p_ms)
+            b_times[(sched, side)] = (k_ms, p_ms, bnd)
             check(same, f"kernel B MS == plain ({sched}, side {side})")
 
     # 5. kernel B, kind BP, against its plain version
@@ -307,11 +370,11 @@ def main():
     bp_times = {}
     for side, H in (("X", Hz), ("Z", Hx)):
         dec = qc_decoder(H, "BP", C5_ITER, C5_SCHEDULE)
-        k_ms, p_ms, err, same = compare_qc(
+        k_ms, p_ms, err, same, bnd = compare_qc(
             f"ms_qc BP {C5_SCHEDULE} side {side} p={C5_P}", dec,
             syn[side].T.contiguous(), lch5, 3)
         worst_bp = max(worst_bp, err)
-        bp_times[side] = (k_ms, p_ms)
+        bp_times[side] = (k_ms, p_ms, bnd)
         check(same, f"kernel B BP == plain (side {side})")
 
     # 6. kernel C against its plain version, on a window of OSD's inputs
@@ -338,6 +401,15 @@ def main():
         lambda: gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW), 20)
     c_plain = cuda_ms(
         lambda: gf2_elim_cuda.eliminate_plain(colsP, osd.r, osd.rW), 2)
+    # each shot's sweep reads its columns up to the last one it selects and
+    # folds every selected column into the basis: at least one pass over a
+    # column's check and tag words for each
+    examined = int(((ks * torch.arange(1, n + 1, device=dev)).max(dim=1)
+                    .values).sum())
+    c_bound = bound(nbytes(colsP, kt, kp, ks),
+                    (examined + int(ks.sum())) * (osd.mW + osd.rW))
+    print(f"gf2_elim bound {c_bound[0]:.6f} ms ({c_bound[1]}; {examined} "
+          f"columns examined)")
     print(f"gf2_elim window {ELIM_WINDOW} x {n} x {osd.mW} words (r {osd.r}): "
           f"{n_failed} decoder-failed shots of a BP decode at p={ELIM_P} "
           f"in reliability order + {ELIM_WINDOW - n_failed} random orders; "
@@ -462,31 +534,211 @@ def main():
           f"4 sigma {4 * sigma!r}")
     check(abs(q["cpu"] - q["cuda"]) <= 4 * sigma,
           "config-5 qBLER on the card within 4 sigma of the CPU")
+
+    # 11, 12. kernel D against its plain version, on the Tanner code
+    tanner = get_code("tanner")
+    Tx = np.asarray(tanner.Hx) % 2
+    Tz = np.asarray(tanner.Hz) % 2
+    nT = Tx.shape[1]
+    ex, ez = channel_cuda.sample_tiles_cuda(keys, SEQ_P, nT, 64)
+    synT = {"X": torch.remainder(ex.float() @ torch.as_tensor(
+                Tz.T, dtype=torch.float32, device=dev), 2.0).T.contiguous(),
+            "Z": torch.remainder(ez.float() @ torch.as_tensor(
+                Tx.T, dtype=torch.float32, device=dev), 2.0).T.contiguous()}
+    lch_seq = ms_qc_cuda.llr_prior(np.float32(SEQ_P) / np.float32(3.0))
+
+    def seq_decoder(H, kind_, max_iter):
+        return seq_qc_cuda.make_seq_qc_decoder(
+            detect_qc(H), DecoderConfig(dec_type=kind_, max_iter=max_iter,
+                                        schedule="S"),
+            layers=build_layers(H, "S"), device=dev, kind=kind_)
+
+    def compare_seq(label, dec, syn_T, reps):
+        """Kernel D against its plain version on one (m, B) syndrome set;
+        returns (kernel ms, plain ms, max |posterior diff|, equal?, bound).
+        The posterior is compared by value (a thread that has left keeps a
+        stored -0.0 where the plain version's masked update stores +0.0)."""
+        kp, ki, kc = seq_qc_cuda.seq_qc_cuda(dec, syn_T, lch_seq)
+        t0 = time.perf_counter()
+        pp, pi, pc = seq_qc_cuda.seq_qc_plain(dec, syn_T, lch_seq)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        err = float((kp - pp).abs().max())
+        diff_shots = int(((kp < 0) != (pp < 0)).any(dim=0).sum())
+        same = (torch.equal(ki, pi) and torch.equal(kc, pc)
+                and diff_shots == 0 and torch.equal(kp, pp))
+        k_ms = cuda_ms(lambda: seq_qc_cuda.seq_qc_cuda(dec, syn_T, lch_seq),
+                       reps)
+        ops = OPS_MS if dec.kind == "MS" else OPS_BP
+        bnd = bound(nbytes(syn_T, kp, ki, kc),
+                    dec.tabs.n_slots * dec.tabs.L * int(ki.sum()) * ops)
+        print(f"{label} (B={syn_T.shape[1]}, {dec.max_iter} it): converged "
+              f"{int(kc.sum())}, mean n_iter {float(ki.float().mean()):.4f}; "
+              f"vs plain: n_iter differs on {int((ki != pi).sum())}, "
+              f"converged on {int((kc != pc).sum())}, e_hat on {diff_shots} "
+              f"shots, posterior elements differing by value "
+              f"{int((kp != pp).sum())}, max|post diff| {err}; kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (one run, host clock), "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]}, sum n_iter "
+              f"{int(ki.sum())}, {nbytes(syn_T, kp, ki, kc)} bytes)  [{smi}]")
+        return k_ms, p_ms, err, same, bnd
+
+    d_times, worst_d = {}, {}
+    for number, kind_ in ((11, "MS"), (12, "BP")):
+        phase(f"{number} kernel D, kind {kind_}")
+        print(f"depth chosen: B={BATCH} at {SEQ_HEAD_ITER} iterations on both "
+              f"sides, B={SEQ_TAIL_SHOTS} at {C4_ITER} iterations on side X; "
+              f"kernel alone at B={BATCH} and {C4_ITER} iterations")
+        worst_d[kind_] = 0.0
+        for side, H in (("X", Tz), ("Z", Tx)):
+            out = compare_seq(f"seq_qc {kind_} side {side} p={SEQ_P}",
+                              seq_decoder(H, kind_, SEQ_HEAD_ITER),
+                              synT[side], 5)
+            worst_d[kind_] = max(worst_d[kind_], out[2])
+            d_times[(kind_, side)] = out
+            check(out[3], f"kernel D {kind_} == plain (side {side}, head)")
+        # the tail window: shots the head left unconverged, at full depth
+        kc = seq_qc_cuda.seq_qc_cuda(seq_decoder(Tz, kind_, SEQ_HEAD_ITER),
+                                     synT["X"], lch_seq)[2]
+        tail = torch.nonzero(~kc).flatten()[:SEQ_TAIL_SHOTS]
+        check(tail.numel() == SEQ_TAIL_SHOTS, "the head left a tail window")
+        out = compare_seq(f"seq_qc {kind_} side X tail window",
+                          seq_decoder(Tz, kind_, C4_ITER),
+                          synT["X"][:, tail].contiguous(), 3)
+        worst_d[kind_] = max(worst_d[kind_], out[2])
+        check(out[3], f"kernel D {kind_} == plain (side X, tail window)")
+        deep = seq_decoder(Tz, kind_, C4_ITER)
+        full_ms = cuda_ms(lambda: seq_qc_cuda.seq_qc_cuda(
+            deep, synT["X"], lch_seq), 3)
+        ki = seq_qc_cuda.seq_qc_cuda(deep, synT["X"], lch_seq)[1]
+        one = synT["X"][:, tail[:1]].contiguous()
+        lone_ms = cuda_ms(lambda: seq_qc_cuda.seq_qc_cuda(
+            deep, one, lch_seq), 3)
+        lone_it = int(seq_qc_cuda.seq_qc_cuda(deep, one, lch_seq)[1][0])
+        print(f"seq_qc {kind_} side X, kernel alone: B={BATCH} at {C4_ITER} "
+              f"it {full_ms:.3f} ms (mean n_iter "
+              f"{float(ki.float().mean()):.4f}, at the cap "
+              f"{int((ki == C4_ITER).sum())}); a lone thread {lone_ms:.3f} ms "
+              f"for {lone_it} iterations = {lone_ms / lone_it:.4f} ms per "
+              f"iteration  [{smi}]")
+
+    # 13. config 4 through the p-sweep entry point, uncut
+    phase("13 config 4 (Tanner, MS-S-30, p-sweep)")
+    files4 = [os.path.join(HERE, f) for f in C4_FILES]
+    # one sweep for the results table and the launch counts of the path
+    reset_launches()
+    res4 = simulate(files4[0], files4[1], C4_P, shots=C4_SHOTS,
+                    decType="MS", decIterations=C4_ITER, decSchedule="S",
+                    rngSeed=SEED)
+    launches4 = read_launches()
+    print(f"config 4 tanner MS-S {C4_ITER} it, p={C4_P}: {C4_SHOTS} shots per "
+          f"p in {C4_SHOTS // BATCH} chunks; launches of the sweep "
+          f"{launches4}")
+    check(launches4["channel"] > 0 and launches4["seq_qc MS"] > 0,
+          "kernels A and D (MS) launched on the config-4 path")
+    check(launches4["ms_qc MS"] == 0 and launches4["ms_qc BP"] == 0
+          and launches4["seq_qc BP"] == 0 and launches4["gf2_elim"] == 0,
+          "no other decoder kernel on the config-4 path")
+    check(len(res4) == len(C4_P), "one result per p")
+    # per p once more on one pipeline, for launches and lanes per p
+    cfg4 = SimConfig(shots=C4_SHOTS, dec_type="MS", dec_iterations=C4_ITER,
+                     dec_schedule="S", rng_seed=SEED, device="cuda")
+    pipe4 = ShotPipeline(Tx, Tz, cfg4)
+    check(pipe4.batch == BATCH, f"config-4 chunk {pipe4.batch}")
+    prev_q = -1.0
+    for i, pT in enumerate(C4_P):
+        for d in (pipe4.dec_x, pipe4.dec_z):
+            d.stage_lanes = [0] * len(d.stages)
+            d.guard_fired = 0
+        before = read_launches()
+        r = simulate_p(Tx, Tz, pT, cfg4, pipeline=pipe4, p_index=i)
+        after = read_launches()
+        check(r.counters == res4[i].counters, f"p={pT}: the sweep's counters")
+        print(f"  p={pT}: counters {json.dumps(r.counters)}")
+        print(f"    qBLER {r.qbler!r}  qBLER_honest {r.qbler_honest!r}  avg "
+              f"iterations X {r.avg_iterations_x!r} Z {r.avg_iterations_z!r}")
+        print(f"    warm {r.warm_shots} shots in {r.warm_time_s:.3f} s = "
+              f"{r.shots_per_s_warm:.1f} shots/s (in the sweep: "
+              f"{res4[i].shots_per_s_warm:.1f}); launches "
+              f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }"
+              f"  [{smi}]")
+        print(f"    lanes per cascade stage {pipe4.dec_x.stages}: X "
+              f"{pipe4.dec_x.stage_lanes}, Z {pipe4.dec_z.stage_lanes}; "
+              f"high-p guard fired in {pipe4.dec_x.guard_fired} (X) and "
+              f"{pipe4.dec_z.guard_fired} (Z) of {C4_SHOTS // BATCH} chunks")
+        c = r.counters
+        check(c["decSuccessExact"] + c["DecFailures_X"] <= C4_SHOTS
+              and c["successStabilizer"] >= c["decSuccessExact"],
+              "config-4 counters consistent")
+        check(prev_q <= r.qbler <= 1.0, f"qBLER {r.qbler} grows with p")
+        prev_q = r.qbler
+        for it in (r.avg_iterations_x, r.avg_iterations_z):
+            check(1.0 <= it <= C4_ITER, f"average iterations {it}")
+        if pT in (C4_P[0], C4_P[-1]):
+            breakdown(pipe4, pT, ("channel", "decode X", "decode Z",
+                                  "classify"), smi,
+                      chunks=C4_BREAKDOWN_CHUNKS, p_index=i)
+    check(pipe4.dec_x.guard_fired > 0 and pipe4.dec_z.guard_fired > 0,
+          f"the high-p guard fired at p={C4_P[-1]}")
+    check(res4[0].qbler < 0.01 and res4[-1].qbler > 0.5,
+          "config-4 qBLER spans the waterfall")
+    # the same entry point with BP: kernel D's other kind on a main path
+    reset_launches()
+    res4b = simulate(files4[0], files4[1], [C4_P[1]], shots=C4_BP_SHOTS,
+                     decType="BP", decIterations=C4_ITER, decSchedule="S",
+                     rngSeed=SEED)
+    launches4b = read_launches()
+    print(f"config 4 with BP, p={C4_P[1]}, {C4_BP_SHOTS} shots: qBLER "
+          f"{res4b[0].qbler!r}, avg iterations X "
+          f"{res4b[0].avg_iterations_x!r}; launches {launches4b}")
+    check(launches4b["seq_qc BP"] > 0 and launches4b["seq_qc MS"] == 0,
+          "kernel D (BP) launched on the BP serial path")
+    check(0.0 <= res4b[0].qbler < 0.5, "BP serial qBLER plausible")
+
+    # 14. config 4 cross-device: the first chunks on the CPU and the card
+    phase("14 config 4 cross-device")
+    small4 = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        r = simulate_p(Tx, Tz, C4_P[1], dataclasses.replace(
+            cfg4, shots=CROSS_CHUNKS * BATCH, device=device), p_index=1)
+        small4[device] = dict(r.counters,
+                              nIterAccX=r.avg_iterations_x * r.shots,
+                              nIterAccZ=r.avg_iterations_z * r.shots)
+        print(f"config 4 cross-device p={C4_P[1]}, first {CROSS_CHUNKS} "
+              f"chunks: {device} {small4[device]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    check(small4["cpu"] == small4["cuda"],
+          "config 4: GPU counters == CPU counters")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
+    def row(name, source, replaces, launches_, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"qldpcsim_torch/csrc/{source}",
+                "replaces": f"qldpcsim_tpu/ops/{replaces}",
+                "launches": launches_, "max_abs_err": float(err), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
+    b_ms, bp_ms = b_times[(SCHEDULE, "X")], bp_times["X"]
+    d_ms, d_bp = d_times[("MS", "X")], d_times[("BP", "X")]
     kernels = [
-        {"name": "channel_depolarizing", "route": "cuda",
-         "source": "qldpcsim_torch/csrc/channel.cu",
-         "replaces": "qldpcsim_tpu/ops/channel_pallas.py:94",
-         "launches": launches["channel"], "max_abs_err": float(worst_a),
-         "ms": a_ms, "plain_ms": a_plain},
-        {"name": "ms_qc_decode", "route": "cuda",
-         "source": "qldpcsim_torch/csrc/ms_qc.cu",
-         "replaces": "qldpcsim_tpu/ops/ms_qc_pallas.py:93",
-         "launches": launches["ms_qc MS"], "max_abs_err": worst_b,
-         "ms": b_times[(SCHEDULE, "X")][0],
-         "plain_ms": b_times[(SCHEDULE, "X")][1]},
-        {"name": "ms_qc_decode_bp", "route": "cuda",
-         "source": "qldpcsim_torch/csrc/ms_qc.cu",
-         "replaces": "qldpcsim_tpu/ops/ms_qc_pallas.py:93",
-         "launches": launches5["ms_qc BP"], "max_abs_err": worst_bp,
-         "ms": bp_times["X"][0], "plain_ms": bp_times["X"][1]},
-        {"name": "gf2_elim", "route": "cuda",
-         "source": "qldpcsim_torch/csrc/gf2_elim.cu",
-         "replaces": "qldpcsim_tpu/ops/gf2_elim_panel_pallas.py:51",
-         "launches": launches5["gf2_elim"], "max_abs_err": float(c_err),
-         "ms": c_ms, "plain_ms": c_plain},
+        row("channel_depolarizing", "channel.cu", "channel_pallas.py:94",
+            launches["channel"], worst_a, a_ms, a_plain, a_bound),
+        row("ms_qc_decode", "ms_qc.cu", "ms_qc_pallas.py:93",
+            launches["ms_qc MS"], worst_b, b_ms[0], b_ms[1], b_ms[2]),
+        row("ms_qc_decode_bp", "ms_qc.cu", "ms_qc_pallas.py:93",
+            launches5["ms_qc BP"], worst_bp, bp_ms[0], bp_ms[1], bp_ms[2]),
+        row("gf2_elim", "gf2_elim.cu", "gf2_elim_panel_pallas.py:51",
+            launches5["gf2_elim"], c_err, c_ms, c_plain, c_bound),
+        row("seq_qc_decode", "seq_qc.cu", "seq_qc_pallas.py:66",
+            launches4["seq_qc MS"], worst_d["MS"], d_ms[0], d_ms[1], d_ms[4]),
+        row("seq_qc_decode_bp", "seq_qc.cu", "seq_qc_pallas.py:66",
+            launches4b["seq_qc BP"], worst_d["BP"], d_bp[0], d_bp[1],
+            d_bp[4]),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} launched on its main path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

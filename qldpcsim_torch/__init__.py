@@ -3,19 +3,22 @@
 The PyTorch counterpart of `qldpcsim_tpu` (the JAX reference, which stays in
 the repository unchanged). Modules mirror the reference's layout and names:
 
-  * `codes`, `gf2`, `ops.qc` — the reference's numpy-only modules, re-exported;
+  * `codes`, `gf2`, `ops.qc` — the code library, GF(2) algebra and QC
+    structure detection (numpy only; the port's own copies);
   * `utils.threefry`, `parallel.keys` — the reference's threefry key chain
     (seed -> p-index -> global tile), bit-exact;
   * `channel` — the depolarizing channel and syndromes;
-  * `decoders` — the circulant-lifted (QC) min-sum and BP decoders, the
-    windowed straggler cascade, and the OSD post-decoder;
+  * `decoders` — the circulant-lifted (QC) min-sum and BP decoders under
+    the flooding, layered and serial schedules, the row-sequential decoder
+    for other matrices, the windowed straggler cascade, and the OSD
+    post-decoder;
   * `engine` — classification counters and the Monte-Carlo loop
-    (`ShotPipeline`, `simulate_p`);
+    (`ShotPipeline`, `simulate_p`, and the p-sweep `simulate`);
   * `ops` — the hand-written CUDA kernels (`csrc/*.cu`) and their plain
     PyTorch versions.
 
 On a CUDA device every kernel of the path runs; on CPU tensors the plain
-PyTorch versions run. Nothing here imports jax.
+PyTorch versions run. Nothing here imports jax or `qldpcsim_tpu`.
 """
 
 from qldpcsim_torch.version import __version__
@@ -31,6 +34,7 @@ __all__ = [
     "ops",
     "utils",
     "convert",
+    "simulate",
     "simulate_p",
     "SimConfig",
 ]
@@ -44,7 +48,7 @@ def __getattr__(name):
     if name in ("codes", "gf2", "channel", "decoders", "engine", "parallel",
                 "ops", "utils", "convert"):
         return importlib.import_module(f"qldpcsim_torch.{name}")
-    if name in ("simulate_p", "SimConfig"):
+    if name in ("simulate", "simulate_p", "SimConfig"):
         mod = importlib.import_module("qldpcsim_torch.engine.montecarlo")
         return getattr(mod, name)
     raise AttributeError(f"module 'qldpcsim_torch' has no attribute {name!r}")

@@ -9,8 +9,14 @@ last two into the port's:
     stored) -> the port's int64 key tensors;
   * `qc_tables_from_reference` — the reference's `QCStructure` and
     block-row layer groups -> the QC decoder's shift and group tables;
+  * `seq_qc_tables_from_reference` — the reference's `QCStructure` -> the
+    serial (row-sequential) QC decoder's tables: the shift tables plus, per
+    variable block, the block-rows that meet it;
   * `osd_static_from_reference` — the reference's `OSDStatic` (packed
     columns of H, rank) -> the OSD post-decoder's tensors.
+
+`QCStructure` is read through `L`, `m_b`, `n_b` and `blocks_of_row` only, so
+the reference's and the port's own (`ops/qc.py`) serve alike.
 """
 
 from __future__ import annotations
@@ -121,6 +127,43 @@ def qc_tables_from_reference(st: QCStructure,
                     slot_s=np.asarray(slot_s, i32),
                     group_ptr=np.asarray(group_ptr, i32),
                     group_snap=np.asarray(group_snap, i32))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqQCTables(QCTables):
+    """Static tables of the serial (row-sequential) QC decoder: `QCTables`
+    with one group per block-row, plus the column view the incremental
+    syndrome upkeep needs. Variable block j is met by the block-rows
+    col_i[k] through the shifts col_s[k], k = col_ptr[j] .. col_ptr[j+1]-1,
+    in block-row order (the reference's `col_blocks[j]`): variable
+    j * L + v sits in check row col_i[k] * L + (v - col_s[k]) % L.
+    row_par[i] is the parity of block-row i's row weight. The c2v message
+    of slot k, check row r is row k * L + r of the message state (block-row
+    i's offset is row_ptr[i] * L, the reference's `offs[i]`)."""
+
+    col_ptr: np.ndarray     # (n_b + 1,) int32
+    col_i: np.ndarray       # (S,) int32
+    col_s: np.ndarray       # (S,) int32
+    row_par: np.ndarray     # (m_b,) int32
+
+
+def seq_qc_tables_from_reference(st: QCStructure) -> SeqQCTables:
+    """Build the serial QC decoder's tables from `QCStructure.blocks_of_row`
+    (natural row order: block-row by block-row, row by row)."""
+    base = qc_tables_from_reference(st, [[i] for i in range(st.m_b)])
+    col_blocks: List[List[tuple]] = [[] for _ in range(st.n_b)]
+    for i in range(st.m_b):
+        for j, s in st.blocks_of_row(i):
+            col_blocks[j].append((i, s % st.L))
+    col_ptr = np.cumsum([0] + [len(c) for c in col_blocks])
+    flat = [pair for c in col_blocks for pair in c]
+    i32 = np.int32
+    return SeqQCTables(
+        **{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
+        col_ptr=np.asarray(col_ptr, i32),
+        col_i=np.asarray([i for i, _ in flat], i32),
+        col_s=np.asarray([s for _, s in flat], i32),
+        row_par=np.asarray(np.diff(base.row_ptr) % 2, i32))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,9 +14,13 @@ The reference's `lax.while_loop` over windows becomes a Python loop here.
 Its trip count comes from `n_failed.item()`: one host synchronisation per
 stage per chunk. Capturing the stages in a CUDA graph is later work.
 
-The reference's serial-schedule high-p guard (gated intermediate stages plus
-a full-depth catch-all) only changes throughput, and serial schedules are
-not in this slice; it comes with the serial decoder.
+Serial schedules carry the reference's high-p guard: when more than 2/3 of
+the batch fails the head, the shallow intermediate stages cannot pay for
+themselves, so they are skipped and the tail is decoded once at full depth,
+in windows of the second stage's size. The reference gates two window loops
+without a conditional; here it is a plain `if` on the `n_failed` the cascade
+brings to the host anyway. It changes no result: a from-scratch full-depth
+decode of a failed lane gives the same e_hat, n_iter and posterior.
 """
 
 from __future__ import annotations
@@ -66,14 +70,18 @@ class Cascade(nn.Module):
     """decode(syndromes, p) -> DecodeResult through the stage decoders."""
 
     def __init__(self, decoders: List[nn.Module],
-                 stages: List[Tuple[int, float]]):
+                 stages: List[Tuple[int, float]], highp_guard: bool = False):
         super().__init__()
         self.decs = nn.ModuleList(decoders)
         self.stages = list(stages)
+        self.highp_guard = highp_guard and len(self.stages) > 2
+        self.guard_fired = 0  # calls in which the high-p guard took over
+        self.stage_lanes = [0] * len(self.stages)  # lanes decoded per stage
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         B = syndromes.shape[0]
         r = self.decs[0](syndromes, p)
+        self.stage_lanes[0] += B
         e, it, conv, post = r.e_hat, r.n_iter, r.converged, r.posterior
         for level in range(1, len(self.stages)):
             order = tail_order(syndromes, conv)
@@ -81,13 +89,20 @@ class Cascade(nn.Module):
             if n_failed == 0:
                 break
             W = window_size(B, self.stages[level][1])
+            heavy = (self.highp_guard and level == 1
+                     and n_failed > (2 * B) // 3)
+            dec = self.decs[-1] if heavy else self.decs[level]
+            self.stage_lanes[-1 if heavy else level] += n_failed
             for lo in range(0, n_failed, W):
                 idx = order[lo:lo + W]
-                s = self.decs[level](syndromes[idx], p)
+                s = dec(syndromes[idx], p)
                 e[idx] = s.e_hat
                 it[idx] = s.n_iter
                 conv[idx] = s.converged
                 post[idx] = s.posterior
+            if heavy:  # the tail was decoded at full depth: nothing is left
+                self.guard_fired += 1
+                break
         return DecodeResult(e_hat=e, n_iter=it, converged=conv,
                             posterior=post)
 
@@ -108,7 +123,7 @@ def make_cascade(decoder_factory, graph, cfg, layers,
         return decoder_factory(graph, cfg, layers=layers)
     decs = [decoder_factory(graph, dataclasses.replace(cfg, max_iter=it),
                             layers=layers) for it, _ in stages]
-    return Cascade(decs, stages)
+    return Cascade(decs, stages, highp_guard=cfg.schedule.upper() == "S")
 
 
 def make_tworound(decoder_factory, graph, cfg, layers, round1_iters: int,

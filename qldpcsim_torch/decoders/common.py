@@ -182,7 +182,7 @@ class DecoderConfig:
                                   # plan, -1 = no cascade
     compact_cap_frac: float = 0.125
     qc_check_every: str = "iter"  # QC decoder convergence-check granularity
-    impl: str = "auto"            # decoder implementation: auto | qc
+    impl: str = "auto"            # decoder implementation: auto | qc | seq
 
 
 @dataclasses.dataclass

@@ -5,7 +5,12 @@ matmul-based classification -> integer counters.
 """
 
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
-from qldpcsim_torch.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+from qldpcsim_torch.engine.montecarlo import (
+    ShotPipeline,
+    SimConfig,
+    simulate,
+    simulate_p,
+)
 from qldpcsim_torch.engine.results import PPointResult, format_results_table
 
 __all__ = [
@@ -14,6 +19,7 @@ __all__ = [
     "ShotPipeline",
     "SimConfig",
     "simulate_p",
+    "simulate",
     "PPointResult",
     "format_results_table",
 ]

@@ -1,5 +1,7 @@
 """Monte-Carlo qBLER engine (port of `qldpcsim_tpu/engine/montecarlo.py`).
 
+`simulate` is the p-sweep with the reference simulator's signature: one
+`ShotPipeline` for the code and decoder, then `simulate_p` per p-point.
 Per p-point: per-tile threefry keys -> depolarizing channel and syndromes ->
 X and Z decodes (the straggler cascade around the QC MS or BP decoder) ->
 OSD over each side's decoder-failed shots, when enabled -> classification
@@ -11,14 +13,20 @@ batch size.
 On `device="cuda"` the channel, the decoder and OSD's elimination run as
 the CUDA kernels of `ops/`; on `device="cpu"` their plain PyTorch versions
 run. A CUDA device without a card raises; nothing falls back.
+
+With `checkpoint_dir` the counters are saved after every key group under an
+id that pins everything the counter stream depends on, and a rerun resumes
+at the first chunk not yet counted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import math
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,8 +41,9 @@ from qldpcsim_torch.decoders import (
 )
 from qldpcsim_torch.decoders.osd import OSD
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
-from qldpcsim_torch.engine.results import PPointResult
+from qldpcsim_torch.engine.results import PPointResult, format_results_table
 from qldpcsim_torch.parallel.keys import chunk_keys
+from qldpcsim_torch.utils.checkpoint import CheckpointStore
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
 
 _COUNTER_KEYS = (
@@ -74,7 +83,7 @@ class SimConfig:
     validate_encoding: bool = False
     checkpoint_dir: Optional[str] = None
     progress: bool = False
-    impl: str = "auto"            # decoder implementation: auto | qc
+    impl: str = "auto"            # decoder implementation: auto | qc | seq
     device: str = "cuda"          # "cuda" (the kernels) | "cpu" (their plain
                                   # PyTorch versions)
 
@@ -124,10 +133,6 @@ class ShotPipeline(nn.Module):
             raise NotImplementedError(
                 "validate_encoding comes with the user-surface slice "
                 "(ROADMAP queue 1, 'User surfaces')")
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoints (utils/checkpoint.py) are not ported yet "
-                "(ROADMAP queue 1)")
         self.device = _resolve_device(cfg.device)
         self.Hx = (np.asarray(Hx) % 2).astype(np.int8)
         self.Hz = (np.asarray(Hz) % 2).astype(np.int8)
@@ -234,6 +239,32 @@ class ShotPipeline(nn.Module):
         return counts
 
 
+def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
+             p_index: int) -> str:
+    """Checkpoint identity digest: everything that determines the counter
+    stream and its chunk layout. The code itself (Hx/Hz bytes), the fully
+    resolved decoder config, the OSD order, layer_compat, the chunk layout
+    (batch and RNG tile size: `chunks_done` only means something under the
+    layout that wrote it), shots, seed, p and the p-index. A resume after a
+    change to any of these misses the old checkpoint instead of reusing
+    stale counts. The device is not part of it: counters do not depend on
+    it for MS, and for BP differ only as two runs of a Monte-Carlo estimate
+    do."""
+    payload = {
+        "Hx_shape": list(pipe.Hx.shape), "Hz_shape": list(pipe.Hz.shape),
+        "Hx": hashlib.sha256(pipe.Hx.tobytes()).hexdigest(),
+        "Hz": hashlib.sha256(pipe.Hz.tobytes()).hexdigest(),
+        "dcfg": dataclasses.asdict(pipe.dcfg),
+        "osd_order": int(cfg.osd_order),
+        "layer_compat": bool(cfg.layer_compat),
+        "batch": pipe.batch, "tile": pipe.tile,
+        "shots": cfg.shots, "seed": int(seed),
+        "p": f"{p:.17e}", "p_index": int(p_index),
+    }
+    blob = json.dumps(payload, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:20]
+
+
 def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
                cfg: Optional[SimConfig] = None,
                pipeline: Optional[ShotPipeline] = None,
@@ -248,12 +279,20 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
     seed = cfg.rng_seed if cfg.rng_seed is not None else 0
     key = fold_in(prng_key(seed, device=pipe.device), p_index)
 
+    store = CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    ckpt_id = (f"p{p_index}_{cfg.dec_type}{cfg.dec_schedule}_"
+               + _ckpt_id(pipe, cfg, seed, p, p_index))
+    totals = {k: 0 for k in _COUNTER_KEYS}
+    start_chunk = 0
+    if store is not None:
+        saved = store.load(ckpt_id)
+        if saved is not None:
+            totals, start_chunk = saved
+
     t0 = time.perf_counter()
     t_first = None  # set after the first chunk (kernel builds land there)
     warm_shots = 0
-    totals = {k: 0 for k in _COUNTER_KEYS}
-    acc = None      # device-side sums of the warm chunks
-    for c0 in range(0, n_chunks, _KEY_GROUP_CHUNKS):
+    for c0 in range(start_chunk, n_chunks, _KEY_GROUP_CHUNKS):
         g = min(_KEY_GROUP_CHUNKS, n_chunks - c0)
         # global tile stream: chunk c owns tiles [c * tpc, (c + 1) * tpc)
         keys = chunk_keys(key, c0 * tpc, g * tpc).reshape(g, tpc, 2)
@@ -266,15 +305,14 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
             keys, n_valids = keys[1:], n_valids[1:]
         if n_valids:
             counts = pipe._multi_chunk_body(keys, p, n_valids)
-            acc = counts if acc is None else {
-                k: acc[k] + counts[k] for k in acc}
+            for k in _COUNTER_KEYS:
+                totals[k] += int(counts[k])  # waits for the device
             warm_shots += sum(n_valids)
+        if store is not None:
+            store.save(ckpt_id, totals, c0 + g)
         if cfg.progress:
             print(f"\r(p={p:5.2e}) decoded {min((c0 + g) * batch, shots)}"
                   f"/{shots} shots", end="", flush=True)
-    if acc is not None:
-        for k in _COUNTER_KEYS:
-            totals[k] += int(acc[k])  # waits for the device
     t_end = time.perf_counter()
     if cfg.progress:
         print()
@@ -291,3 +329,29 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
         warm_time_s=warm_elapsed,
         warm_shots=warm_shots,
     )
+
+
+def simulate(HxFile: str, HzFile: str, p: Sequence[float],
+             shots: int = 1000, decType: str = "MS", decIterations: int = 99,
+             decSchedule: str = "F", OSDorder: int = -1,
+             rngSeed: Optional[int] = None, **kwargs) -> List[PPointResult]:
+    """p-sweep with the reference simulator's signature and results table
+    (the reference's `simulate`): one pipeline, the p-points one after
+    another, each on its own key branch `p_index` = position in `p`.
+    `kwargs` are further `SimConfig` fields; `device` defaults to "cuda"."""
+    from qldpcsim_torch.codes.loader import load_matrix
+
+    Hx = load_matrix(HxFile)
+    Hz = load_matrix(HzFile)
+    p = np.asarray(p, dtype=np.float64)
+    if p.size == 0 or p.max() > 1.0 or p.min() < 0.0:
+        raise ValueError("p must be a non-empty sequence of probabilities "
+                         "in [0, 1]")
+    cfg = SimConfig(shots=shots, dec_type=decType,
+                    dec_iterations=decIterations, dec_schedule=decSchedule,
+                    osd_order=OSDorder, rng_seed=rngSeed, **kwargs)
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    results = [simulate_p(Hx, Hz, pT, cfg, pipeline=pipe, p_index=i)
+               for i, pT in enumerate(p)]
+    print(format_results_table(results))
+    return results

@@ -4,6 +4,8 @@ plain PyTorch versions, and the static QC structure they exploit.
   * `channel_cuda` — the threefry depolarizing channel (kernel A);
   * `ms_qc_cuda`   — min-sum and BP over a circulant-lifted H (kernel B);
   * `gf2_elim_cuda` — OSD's batched GF(2) elimination (kernel C);
+  * `seq_qc_cuda`  — serial (row-sequential) min-sum and BP over a
+    circulant-lifted H (kernel D);
   * `_build`       — builds the `.cu` sources with nvcc and loads them.
 """
 

@@ -1,4 +1,5 @@
-"""Float32 natural log as XLA's CPU backend computes it, on the host.
+"""Float32 arithmetic as XLA's CPU backend computes it: its natural log on
+the host, and a correctly rounded fused multiply-add on tensors.
 
 The reference forms the decoder's channel LLR with a float32 `jnp.log`,
 which XLA:CPU lowers to its own polynomial (`GenerateVF32Log`, Cephes
@@ -8,6 +9,10 @@ rounded log: the two differ by one ulp on about 5 % of float32 inputs.
 the multiply-adds that LLVM contracts into fused multiply-adds, so that the
 port's prior equals the reference's bit for bit. It is one scalar per p
 point, so it is written for clarity, not speed.
+
+`fma_f32_torch` is the same fused multiply-add elementwise on tensors, for
+the plain versions of kernels whose reference contracts a multiply and an
+add (torch has no float32 fma of its own).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 f32 = np.float32
 
@@ -44,6 +50,22 @@ def fma_f32(a, b, c) -> np.float32:
             bits += 1 if (err > 0) == (s > 0) else -1
             s = float(np.int64(bits).view(np.float64))
     return f32(s)
+
+
+def fma_f32_torch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                  ) -> torch.Tensor:
+    """Correctly rounded float32 a * b + c, elementwise with broadcasting:
+    `fma_f32` on tensors (exact float64 product, float64 sum rounded to odd,
+    then to float32), on the tensors' device."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    fix = (err != 0) & torch.isfinite(s) & ((bits & 1) == 0)
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
 
 
 def xla_cpu_logf(x) -> np.float32:

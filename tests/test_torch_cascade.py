@@ -1,6 +1,7 @@
 """The port's straggler cascade is bit-identical to one full-depth decode,
-and equal to the reference's make_cascade over the Pallas kernel (interpret
-mode). make_decoder routes what the port carries and raises for the rest."""
+with and without the serial schedule's high-p guard, and equal to the
+reference's make_cascade over the Pallas kernel (interpret mode).
+make_decoder routes what the port carries and raises for the rest."""
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from qldpcsim_torch.decoders.cascade import (
     window_size,
 )
 from qldpcsim_torch.ops.ms_qc_cuda import QCDecoder
+from qldpcsim_torch.ops.seq_qc_cuda import SeqQCDecoder
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,6 +71,48 @@ def test_cascade_equals_full_depth(code, sched, p, round1):
     assert (r_full.n_iter > casc.stages[0][0]).any()
 
 
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("p_err,fires", [(0.12, True), (0.05, False)])
+def test_guarded_serial_cascade_equals_full_depth(kind, p_err, fires):
+    """Serial schedule, 4 -> 10 -> 30: when more than 2/3 of the batch fails
+    the head, the guard skips the 10-iteration stage and decodes the tail
+    once at full depth; when few fail, the stages run as usual. Either way
+    the results are those of one full-depth decode, bit for bit."""
+    H = np.asarray(get_code("lp04_0").Hz) % 2
+    graph = TannerGraph.build(H)
+    syn = torch.from_numpy(_syndromes(97, H, 96, p_err))
+    full = make_decoder(graph, DecoderConfig(
+        dec_type=kind, max_iter=30, schedule="S", round1_iters=-1))
+    casc = make_decoder(graph, DecoderConfig(
+        dec_type=kind, max_iter=30, schedule="S"))
+    assert isinstance(full, SeqQCDecoder) and isinstance(casc, Cascade)
+    assert casc.stages == [(4, 1.0), (10, 0.125), (30, 1.0 / 32)]
+    assert casc.highp_guard and all(d.kind == kind for d in casc.decs)
+    p = np.float32(0.05) / np.float32(3.0)
+    head = casc.decs[0](syn, p)
+    n_failed = int((~head.converged).sum())
+    assert n_failed > 0 and (n_failed > (2 * 96) // 3) == fires
+    r_full, r_casc = full(syn, p), casc(syn, p)
+    _same(r_full, r_casc)
+    assert casc.guard_fired == int(fires)
+    assert (r_full.n_iter > 4).any()
+    if fires:
+        assert (~r_full.converged).any()
+
+
+def test_guard_is_for_the_serial_schedule_only():
+    H = np.asarray(get_code("lp04_0").Hz) % 2
+    graph = TannerGraph.build(H)
+    casc = make_decoder(graph, DecoderConfig(max_iter=30, schedule="L"))
+    assert isinstance(casc, Cascade) and not casc.highp_guard
+    two = make_decoder(graph, DecoderConfig(max_iter=20, schedule="S"))
+    assert isinstance(two, Cascade) and len(two.stages) == 2
+    assert not two.highp_guard      # no intermediate stage to skip
+    syn = torch.from_numpy(_syndromes(97, H, 96, 0.12))
+    casc(syn, 0.02)
+    assert casc.guard_fired == 0
+
+
 def test_cascade_equals_reference_cascade():
     H = np.asarray(get_code("lp118_0").Hz) % 2
     st = detect_qc(H)
@@ -104,12 +148,12 @@ def test_stage_plan_and_windows():
 
 
 @pytest.mark.parametrize("code,cfg,err", [
-    ("lp04_0", DecoderConfig(dec_type="BP", schedule="S"),
+    ("bicycle", DecoderConfig(dec_type="BP", schedule="L"),
      NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="BF"), NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="NG"), NotImplementedError),
     ("lp04_0", DecoderConfig(dec_type="XX"), ValueError),
-    ("lp04_0", DecoderConfig(schedule="S"), NotImplementedError),
+    ("lp04_0", DecoderConfig(schedule="X"), ValueError),
     ("lp04_0", DecoderConfig(impl="edge"), NotImplementedError),
     ("bicycle", DecoderConfig(), NotImplementedError),
     ("steane", DecoderConfig(schedule="L"), NotImplementedError),

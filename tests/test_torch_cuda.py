@@ -18,7 +18,13 @@ from qldpcsim_torch.convert import osd_static_from_reference
 from qldpcsim_torch.decoders import DecoderConfig, build_layers
 from qldpcsim_torch.decoders.osd import OSD, OSDStatic
 from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
-from qldpcsim_torch.ops import _build, channel_cuda, gf2_elim_cuda, ms_qc_cuda
+from qldpcsim_torch.ops import (
+    _build,
+    channel_cuda,
+    gf2_elim_cuda,
+    ms_qc_cuda,
+    seq_qc_cuda,
+)
 from qldpcsim_torch.ops.qc import detect_qc
 from qldpcsim_torch.parallel.keys import chunk_keys
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -45,6 +51,13 @@ def _decoder(H, sched, device, max_iter=50, kind="MS"):
         layers=build_layers(H, sched), device=device)
 
 
+def _seq_decoder(H, device, max_iter, kind="MS"):
+    return seq_qc_cuda.make_seq_qc_decoder(
+        detect_qc(H), DecoderConfig(dec_type=kind, max_iter=max_iter,
+                                    schedule="S"),
+        layers=build_layers(H, "S"), device=device, kind=kind)
+
+
 def _permuted_columns(code, B, seed, device):
     st = OSDStatic.build(np.asarray(get_code(code).Hz) % 2)
     rng = np.random.default_rng(seed)
@@ -68,6 +81,11 @@ def test_wrappers_reject_malformed_input():
     with pytest.raises(ValueError):
         ms_qc_cuda.ms_qc_cuda(dec, torch.zeros(H.shape[0], 8,
                                                dtype=torch.float64), 1.0)
+    seq = _seq_decoder(H, "cpu", 4)
+    with pytest.raises(ValueError):
+        seq_qc_cuda.seq_qc_cuda(seq, torch.zeros(H.shape[0] + 1, 8), 1.0)
+    with pytest.raises(ValueError):
+        seq_qc_cuda.seq_qc_cuda(seq, torch.zeros(8, H.shape[0]).T, 1.0)
 
 
 @pytest.mark.parametrize("shape,dtype,r,rW", [
@@ -92,6 +110,9 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         gf2_elim_cuda.eliminate(torch.zeros((2, 175, 3), dtype=torch.int32,
                                             device="meta"), 78, 3)
+    with pytest.raises(ValueError):
+        seq_qc_cuda.seq_qc(_seq_decoder(H, "cpu", 4),
+                           torch.zeros(H.shape[0], 8, device="meta"), 1.0)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -151,6 +172,77 @@ def test_bp_qc_kernel_equals_plain(cuda_device, code, sched):
     assert kc.any() and not kc.all()
     assert torch.equal(ki, pi) and torch.equal(kc, pc)
     assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,B,max_iter,p_err", [
+    ("lp04_0", 300, 30, 0.05),     # small shape, full depth
+    ("lp118_0", 300, 8, 0.04),     # lift 16
+    ("tanner", 4096, 3, 0.047),    # the main path's shape (config 4 chunk)
+    ("tanner", 128, 16, 0.047),    # the main path's last-stage window
+])
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+def test_seq_qc_kernel_equals_plain(cuda_device, kind, code, B, max_iter,
+                                    p_err):
+    """Kernel D against its plain version, both sides of the code: n_iter
+    and converged equal, and the posterior equal by value on every element
+    (tolerance 0; `torch.equal` takes -0.0 == 0.0, which a thread that left
+    its loops keeps where the plain version's masked update stores +0.0)."""
+    code_ = get_code(code)
+    for H in (np.asarray(code_.Hz) % 2, np.asarray(code_.Hx) % 2):
+        dec = _seq_decoder(H, cuda_device, max_iter, kind)
+        syn_T = _syndromes(12, H, B, p_err, cuda_device).T.contiguous()
+        syn_T[:, 0] = 0.0           # a zero syndrome: one row, n_iter == 1
+        lch = ms_qc_cuda.llr_prior(np.float32(0.07) / np.float32(3.0))
+        before = dict(seq_qc_cuda.LAUNCHES)
+        kp, ki, kc = seq_qc_cuda.seq_qc(dec, syn_T, lch)
+        pp, pi, pc = seq_qc_cuda.seq_qc_plain(dec, syn_T, lch)
+        assert seq_qc_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
+        assert int(ki[0]) == 1 and bool(kc[0]) and not (kp[:, 0] < 0).any()
+        assert kc.any() and ki.max() > 1
+        assert torch.equal(ki, pi) and torch.equal(kc, pc)
+        assert torch.equal(kp < 0, pp < 0)
+        assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_unwritable_build_dir_raises_on_cuda_tensor(cuda_device, monkeypatch,
+                                                    tmp_path):
+    """A CUDA tensor launches the kernel or raises: with nowhere to build
+    the kernel, the wrapper raises and does not fall back to the plain
+    version."""
+    blocked = tmp_path / "file"
+    blocked.write_text("not a directory")
+    monkeypatch.setattr(_build, "BUILD_DIR", blocked / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    H = np.asarray(get_code("lp04_0").Hz) % 2
+    dec = _seq_decoder(H, cuda_device, 4)
+    syn_T = _syndromes(13, H, 64, 0.05, cuda_device).T.contiguous()
+    before = dict(seq_qc_cuda.LAUNCHES)
+    with pytest.raises(OSError):
+        seq_qc_cuda.seq_qc(dec, syn_T, 4.0)
+    assert seq_qc_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_config4_on_card_equals_cpu(cuda_device):
+    """Serial min-sum on the Tanner code through `simulate_p`: the card's
+    counters equal the CPU's (MS is bit-exact across devices), through
+    kernel D and not kernel B."""
+    c = get_code("tanner")
+    cfg = SimConfig(shots=192, dec_type="MS", dec_iterations=30,
+                    dec_schedule="S", batch_size=64, rng_seed=5,
+                    device="cpu")
+    on_cpu = simulate_p(c.Hx, c.Hz, 0.04, cfg)
+    seq_before = seq_qc_cuda.LAUNCHES["MS"]
+    b_before = dict(ms_qc_cuda.LAUNCHES)
+    on_card = simulate_p(c.Hx, c.Hz, 0.04,
+                         dataclasses.replace(cfg, device="cuda"))
+    assert seq_qc_cuda.LAUNCHES["MS"] >= seq_before + 6
+    assert ms_qc_cuda.LAUNCHES == b_before
+    assert on_card.counters == on_cpu.counters
+    assert on_card.avg_iterations_x == on_cpu.avg_iterations_x
+    assert on_card.avg_iterations_z == on_cpu.avg_iterations_z
 
 
 @pytest.mark.cuda

@@ -1,11 +1,16 @@
-"""The port's simulate_p (CPU, plain versions) end to end: counters
-bit-exact with a reference pipeline put together from the JAX package's own
-functions over the same key chain (min-sum, with and without OSD), and
-qBLER within 4 sigma of the JAX package's simulate_p (min-sum, and BP with
-OSD-2)."""
+"""The port's simulate_p and simulate (CPU, plain versions) end to end:
+counters bit-exact with a reference pipeline put together from the JAX
+package's own functions over the same key chain (min-sum under the layered
+schedule, with and without OSD, and under the serial schedule on the Tanner
+code), qBLER within 4 sigma of the JAX package's simulate_p (min-sum, BP
+with OSD-2, serial min-sum), and checkpointed runs."""
 
+import contextlib
 import dataclasses
+import io
+import json
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +30,18 @@ from qldpcsim_tpu.engine.montecarlo import SimConfig as RefSimConfig
 from qldpcsim_tpu.engine.montecarlo import simulate_p as ref_simulate_p
 from qldpcsim_tpu.ops.ms_qc_pallas import make_ms_qc_decoder
 from qldpcsim_tpu.ops.qc import detect_qc
+from qldpcsim_tpu.ops.seq_qc_pallas import make_ms_seq_qc_decoder
 from qldpcsim_tpu.parallel.mesh import chunk_keys
 
+from qldpcsim_torch.decoders.cascade import Cascade
+from qldpcsim_torch.engine import montecarlo
 from qldpcsim_torch.engine.montecarlo import (
     ShotPipeline,
     SimConfig,
     _auto_batch,
+    _ckpt_id,
     _tile_size,
+    simulate,
     simulate_p,
 )
 from qldpcsim_torch.engine.results import format_results_table
@@ -47,24 +57,38 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _reference_counters(Hx, Hz, p, shots, batch, seed, p_index, max_iter):
-    """The reference engine's chunk body on its threefry path, with the
-    Pallas kernel in interpret mode: chunk_keys -> sample_shot_tiles ->
-    make_cascade(make_ms_qc_decoder) -> classify_batch."""
-    n = Hx.shape[1]
+def _layered_cascade(H, max_iter):
+    """make_cascade(make_ms_qc_decoder), layered, Pallas in interpret mode."""
+    st = detect_qc(H)
     cfg = RefConfig(dec_type="MS", max_iter=max_iter, schedule="L")
 
-    def decoder(H):
-        st = detect_qc(H)
+    def factory(graph, c, layers=None):
+        return make_ms_qc_decoder(st, c, layers=layers, B_blk=32,
+                                  interpret=True)
 
-        def factory(graph, c, layers=None):
-            return make_ms_qc_decoder(st, c, layers=layers, B_blk=32,
-                                      interpret=True)
+    return make_cascade(factory, RefGraph.build(H), cfg,
+                        ref_build_layers(H, "L"))
 
-        return make_cascade(factory, RefGraph.build(H), cfg,
-                            ref_build_layers(H, "L"))
 
-    dec_x, dec_z = decoder(Hz), decoder(Hx)
+def _serial_full_depth(H, max_iter):
+    """The Pallas serial kernel in interpret mode at full depth, with no
+    cascade around it (the cascade changes no result, and each stage would
+    cost another ~25 s interpret-mode compile of the Tanner kernel)."""
+    return make_ms_seq_qc_decoder(
+        detect_qc(H), RefConfig(dec_type="MS", max_iter=max_iter,
+                                schedule="S"),
+        layers=ref_build_layers(H, "S"), B_blk=64, interpret=True)
+
+
+def _reference_counters(Hx, Hz, p, shots, batch, seed, p_index, max_iter,
+                        decoders=None):
+    """The reference engine's chunk body on its threefry path, with the
+    Pallas kernel in interpret mode: chunk_keys -> sample_shot_tiles ->
+    decoder (make_cascade(make_ms_qc_decoder) unless `decoders` gives the X
+    and Z sides' own) -> classify_batch."""
+    n = Hx.shape[1]
+    dec_x, dec_z = decoders or (_layered_cascade(Hz, max_iter),
+                                _layered_cascade(Hx, max_iter))
     classifier = ClassifierStatic.build(Hx, Hz)
     Hx_T, Hz_T = Hx.T.astype(np.float32), Hz.T.astype(np.float32)
 
@@ -237,7 +261,7 @@ def test_batch_and_tile_sizes():
 @pytest.mark.parametrize("kw,err", [
     (dict(dec_type="BF", osd_order=2), NotImplementedError),
     (dict(validate_encoding=True), NotImplementedError),
-    (dict(checkpoint_dir="ckpt"), NotImplementedError),
+    (dict(dec_type="NG"), NotImplementedError),
     (dict(device="mps"), ValueError),
 ])
 def test_pipeline_raises_outside_the_slice(kw, err):
@@ -252,3 +276,173 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     c = get_code("lp04_0")
     with pytest.raises(RuntimeError):
         ShotPipeline(c.Hx, c.Hz, SimConfig(dec_schedule="L", device="cuda"))
+
+
+# --- config 4 at a small size: Tanner code, MS, serial schedule, 30
+# iterations, a p-sweep through `simulate` -------------------------------
+
+DATA = Path(__file__).resolve().parents[1] / "data"
+C4_P = [0.02, 0.07]
+C4_SHOTS, C4_BATCH, C4_SEED = 128, 64, 0
+
+
+@pytest.fixture(scope="module")
+def config4():
+    """One run of the port's `simulate` on the CPU; its printed output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = simulate(str(DATA / "Hx_T.npy"), str(DATA / "Hz_T.npy"),
+                           C4_P, shots=C4_SHOTS, decType="MS",
+                           decIterations=30, decSchedule="S",
+                           rngSeed=C4_SEED, batch_size=C4_BATCH,
+                           device="cpu")
+    return results, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def config4_reference_decoders():
+    c = get_code("tanner")
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    return Hx, Hz, (_serial_full_depth(Hz, 30), _serial_full_depth(Hx, 30))
+
+
+@pytest.mark.parametrize("i", range(len(C4_P)))
+def test_config4_counters_bit_exact_with_reference_chain(
+        config4, config4_reference_decoders, i):
+    """The 9 counters of each p-point equal those of a chain of the JAX
+    package's own functions around its Pallas serial kernel (interpret
+    mode) on the key branch p_index = position: tolerance 0."""
+    results, _ = config4
+    Hx, Hz, decoders = config4_reference_decoders
+    ref = _reference_counters(Hx, Hz, C4_P[i], C4_SHOTS, C4_BATCH, C4_SEED,
+                              i, 30, decoders=decoders)
+    assert _counters(results[i]) == ref
+    assert ref["nIterAccX"] > C4_SHOTS      # the decoder iterated
+
+
+@pytest.mark.parametrize("i", range(len(C4_P)))
+def test_config4_qbler_within_4_sigma_of_reference_simulate_p(config4, i):
+    """Against the JAX package's simulate_p on the CPU, which takes its XLA
+    row-sequential path there (a different float32 association, so held to
+    4 sigma and not bit for bit)."""
+    results, _ = config4
+    c = get_code("tanner")
+    ref = ref_simulate_p(c.Hx, c.Hz, C4_P[i], RefSimConfig(
+        shots=C4_SHOTS, dec_type="MS", dec_iterations=30, dec_schedule="S",
+        rng_seed=C4_SEED, batch_size=C4_BATCH, device="cpu"), p_index=i)
+    res = results[i]
+    for a, b in ((ref.qbler, res.qbler), (ref.qbler_honest, res.qbler_honest)):
+        pool = (a + b) / 2
+        sigma = math.sqrt(max(pool * (1 - pool), 1e-12) * 2 / C4_SHOTS)
+        assert abs(a - b) <= 4 * sigma, (a, b)
+    assert abs(ref.avg_iterations_x - res.avg_iterations_x) <= 0.5
+
+
+def test_simulate_returns_one_result_per_p_and_prints_the_table(config4):
+    results, printed = config4
+    assert [r.p for r in results] == C4_P
+    assert all(r.shots == C4_SHOTS for r in results)
+    assert printed.rstrip("\n") == format_results_table(results)
+    assert "SIMULATION RESULTS" in printed and "2.00e-02" in printed
+    # p_index = position: each p-point ran on its own key branch
+    c = get_code("tanner")
+    cfg = SimConfig(shots=C4_SHOTS, dec_type="MS", dec_iterations=30,
+                    dec_schedule="S", rng_seed=C4_SEED, batch_size=C4_BATCH,
+                    device="cpu")
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    assert isinstance(pipe.dec_x, Cascade) and pipe.dec_x.highp_guard
+    again = simulate_p(c.Hx, c.Hz, C4_P[0], cfg, pipeline=pipe, p_index=0)
+    assert _counters(again) == _counters(results[0])
+    other = simulate_p(c.Hx, c.Hz, C4_P[0], cfg, pipeline=pipe, p_index=1)
+    assert _counters(other) != _counters(results[0])
+    assert results[1].qbler > results[0].qbler
+    with pytest.raises(ValueError):
+        simulate(str(DATA / "Hx_T.npy"), str(DATA / "Hz_T.npy"), [1.5],
+                 device="cpu")
+
+
+# --- checkpoints ---------------------------------------------------------
+
+def _ckpt_cfg(tmp_path, **kw):
+    base = dict(shots=7 * 64, dec_type="MS", dec_iterations=20,
+                dec_schedule="L", batch_size=64, rng_seed=9, device="cpu",
+                checkpoint_dir=str(tmp_path))
+    return SimConfig(**{**base, **kw})
+
+
+class _Killed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_checkpointed_run_resumes_after_a_kill(tmp_path, monkeypatch, k):
+    """A run killed after k key groups and started again gives the counters
+    of an uninterrupted run, and decodes only the chunks that were left."""
+    c = get_code("lp04_0")
+    monkeypatch.setattr(montecarlo, "_KEY_GROUP_CHUNKS", 2)  # 4 groups
+    whole = simulate_p(c.Hx, c.Hz, 0.07, _ckpt_cfg(tmp_path, checkpoint_dir=None))
+    saves = []
+    real_save = montecarlo.CheckpointStore.save
+
+    def save_then_die(self, run_id, counters, chunks_done):
+        real_save(self, run_id, counters, chunks_done)
+        saves.append(chunks_done)
+        if len(saves) == k:
+            raise _Killed()
+
+    monkeypatch.setattr(montecarlo.CheckpointStore, "save", save_then_die)
+    cfg = _ckpt_cfg(tmp_path)
+    with pytest.raises(_Killed):
+        simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert saves == [2 * (g + 1) for g in range(k)]
+    files = list(tmp_path.glob("p0_MSL_*.json"))
+    assert len(files) == 1
+    assert json.loads(files[0].read_text())["chunks_done"] == 2 * k
+    monkeypatch.setattr(montecarlo.CheckpointStore, "save", real_save)
+    chunks = []
+    real_body = ShotPipeline._chunk_body
+
+    def counting_body(self, keys, p, n_valid):
+        chunks.append(n_valid)
+        return real_body(self, keys, p, n_valid)
+
+    monkeypatch.setattr(ShotPipeline, "_chunk_body", counting_body)
+    resumed = simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert len(chunks) == 7 - 2 * k
+    assert _counters(resumed) == _counters(whole)
+    # a finished run's checkpoint answers without decoding anything
+    chunks.clear()
+    again = simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert chunks == [] and _counters(again) == _counters(whole)
+
+
+@pytest.mark.parametrize("change", [
+    dict(rng_seed=10), dict(shots=6 * 64), dict(dec_iterations=21),
+    dict(dec_schedule="F"), dict(osd_order=0), dict(batch_size=128),
+    "p", "p_index", "code",
+])
+def test_changed_run_misses_the_checkpoint(tmp_path, change):
+    """Seed, p, shots, the code or any decoder knob is part of the
+    checkpoint's identity: a changed run starts from zero."""
+    c = get_code("lp04_0")
+    cfg = _ckpt_cfg(tmp_path, shots=128)
+    simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    Hx, Hz, p, p_index, cfg2 = c.Hx, c.Hz, 0.07, 0, cfg
+    if change == "p":
+        p = 0.071
+    elif change == "p_index":
+        p_index = 1
+    elif change == "code":
+        other = get_code("lp04_1")
+        Hx, Hz = other.Hx, other.Hz
+    else:
+        cfg2 = dataclasses.replace(cfg, **change)
+    pipe, pipe2 = ShotPipeline(c.Hx, c.Hz, cfg), ShotPipeline(Hx, Hz, cfg2)
+    assert _ckpt_id(pipe, cfg, 9, 0.07, 0) != _ckpt_id(
+        pipe2, cfg2, cfg2.rng_seed, p, p_index)
+    res = simulate_p(Hx, Hz, p, cfg2, pipeline=pipe2, p_index=p_index)
+    assert len(list(tmp_path.glob("*.json"))) == 2
+    fresh = simulate_p(Hx, Hz, p, dataclasses.replace(
+        cfg2, checkpoint_dir=None), p_index=p_index)
+    assert _counters(res) == _counters(fresh)
