@@ -8,10 +8,11 @@ the repository unchanged). Modules mirror the reference's layout and names:
   * `utils.threefry`, `parallel.keys` — the reference's threefry key chain
     (seed -> p-index -> global tile), bit-exact;
   * `channel` — the depolarizing channel and syndromes;
-  * `decoders` — the circulant-lifted (QC) min-sum and BP decoders under
-    the flooding, layered and serial schedules, the row-sequential decoder
-    for other matrices, the windowed straggler cascade, and the OSD
-    post-decoder;
+  * `decoders` — min-sum and BP over any parity-check matrix under the
+    flooding, layered and serial schedules (the circulant-lifted and
+    general-H kernels, the row-sequential, incidence and edge-layout
+    decoders), bit-flipping and naive-greedy, the windowed straggler
+    cascade, and the OSD post-decoder;
   * `engine` — classification counters and the Monte-Carlo loop
     (`ShotPipeline`, `simulate_p`, and the p-sweep `simulate`);
   * `ops` — the hand-written CUDA kernels (`csrc/*.cu`) and their plain

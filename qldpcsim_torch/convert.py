@@ -13,7 +13,11 @@ last two into the port's:
     serial (row-sequential) QC decoder's tables: the shift tables plus, per
     variable block, the block-rows that meet it;
   * `osd_static_from_reference` — the reference's `OSDStatic` (packed
-    columns of H, rank) -> the OSD post-decoder's tensors.
+    columns of H, rank) -> the OSD post-decoder's tensors;
+  * `gh_tables_from_reference` — the reference's `TannerGraph` and
+    `LayerSchedule` (read through `row_vars`, `row_mask`, `rows`, `sizes`,
+    so the port's own serve alike) -> the general-H decoder's edge table
+    and layer runs.
 
 `QCStructure` is read through `L`, `m_b`, `n_b` and `blocks_of_row` only, so
 the reference's and the port's own (`ops/qc.py`) serve alike.
@@ -164,6 +168,94 @@ def seq_qc_tables_from_reference(st: QCStructure) -> SeqQCTables:
         col_i=np.asarray([i for i, _ in flat], i32),
         col_s=np.asarray([s for _, s in flat], i32),
         row_par=np.asarray(np.diff(base.row_ptr) % 2, i32))
+
+
+@dataclasses.dataclass(frozen=True)
+class GHTables:
+    """Static tables of the general-H decoder. Edges are check-major with
+    every check row padded to dmax slots: edge i * dmax + k joins check row i
+    to variable var_of[i, k], or to nothing where var_of is -1. Layer l is
+    the contiguous check rows run_ptr[l] .. run_ptr[l+1]-1; run_shared[l] is
+    1 when two of its rows meet one variable, so that the layer must read
+    the posterior as it stood at the layer's start and sum its deltas per
+    variable before adding them (when they share none, updating the
+    posterior in place gives the same numbers)."""
+
+    n: int
+    var_of: np.ndarray      # (m, dmax) int32, -1 pads
+    run_ptr: np.ndarray     # (R + 1,) int32
+    run_shared: np.ndarray  # (R,) int32
+
+    @property
+    def m(self) -> int:
+        return self.var_of.shape[0]
+
+    @property
+    def dmax(self) -> int:
+        return self.var_of.shape[1]
+
+    @property
+    def n_edges(self) -> int:
+        """Edge slots, pads included (the reference's E = m * dmax)."""
+        return self.var_of.size
+
+    @property
+    def runs(self) -> List[tuple]:
+        return [(int(a), int(b)) for a, b in zip(self.run_ptr[:-1],
+                                                 self.run_ptr[1:])]
+
+    @staticmethod
+    def build(var_of: np.ndarray, n: int, runs: Sequence[tuple]
+              ) -> "GHTables":
+        var_of = np.ascontiguousarray(var_of, dtype=np.int32)
+        shared = []
+        for a, b in runs:
+            vs = var_of[a:b][var_of[a:b] >= 0]
+            shared.append(int(vs.size != np.unique(vs).size))
+        return GHTables(n=int(n), var_of=var_of,
+                        run_ptr=np.asarray([0] + [b for _, b in runs],
+                                           np.int32),
+                        run_shared=np.asarray(shared, np.int32))
+
+
+def _contiguous_layer_runs(layers, m: int):
+    """[(row0, row1), ...] per non-empty layer, or None if any layer is not a
+    contiguous ascending run, the runs covering 0..m-1 in order. No layers
+    means one run of all rows."""
+    if layers is None:
+        return [(0, m)]
+    runs = []
+    nxt = 0
+    for li in range(layers.n_layers):
+        size = int(layers.sizes[li])
+        if size == 0:
+            continue
+        rows = layers.rows[li, :size]
+        a, b = int(rows[0]), int(rows[-1]) + 1
+        if a != nxt or size != b - a or not (rows == np.arange(a, b)).all():
+            return None
+        runs.append((a, b))
+        nxt = b
+    return runs if nxt == m else None
+
+
+def gh_tables_from_reference(graph, layers=None) -> GHTables:
+    """The general-H decoder's tables from a `TannerGraph` (`row_vars` with
+    its pad value n, `row_mask`) and a `LayerSchedule` (`rows`, `sizes`;
+    None = one layer of all rows, the flooding schedule). Raises ValueError
+    when the layers are not contiguous runs covering the rows in order."""
+    m, n = np.asarray(graph.H).shape
+    mask = np.asarray(graph.row_mask)[:m]
+    dmax = int(mask.sum(axis=1).max(initial=0))
+    if dmax == 0:
+        raise ValueError("the general-H decoder needs a check row with an "
+                         "edge")
+    runs = _contiguous_layer_runs(layers, m)
+    if runs is None:
+        raise ValueError("the general-H decoder needs contiguous layers "
+                         "covering the check rows in order")
+    var_of = np.where(mask, np.asarray(graph.row_vars)[:m], -1)[:, :dmax]
+    return GHTables.build(var_of, n, runs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -171,18 +171,28 @@ def build_layers(H_decode: np.ndarray, schedule: str,
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """Decoder configuration: the reference's fields that the port reads,
-    with the reference's defaults. The BF fields come with their slice."""
+    with the reference's defaults."""
 
     dec_type: str = "MS"          # NG | BF | MS | BP
     max_iter: int = 99
     schedule: str = "F"           # F | L | S
     beta: float = 0.75            # MS normalization
     eps: float = 1e-6             # BP: extrinsic tanh clamped to 1 - eps
+    bf_max_iter: int = 50         # BF iteration cap
+    bf_residual: str = "mod2"     # BF residual: "mod2" (overlap parity, the
+                                  # standard bit-flipping residual) | "bool"
+                                  # (any overlap, the reference simulator's)
     round1_iters: int = 0         # two-round cascade head: 0 = auto stage
                                   # plan, -1 = no cascade
     compact_cap_frac: float = 0.125
     qc_check_every: str = "iter"  # QC decoder convergence-check granularity
-    impl: str = "auto"            # decoder implementation: auto | qc | seq
+    impl: str = "auto"            # decoder implementation: auto | edge (the
+                                  # padded edge layout, global variable-node
+                                  # refresh) | mxu (incidence products, lazy
+                                  # v2c) | seq (row-sequential, serial
+                                  # schedules) | qc (kernels B and D,
+                                  # circulant-lifted H) | gh (kernel E, any H
+                                  # with contiguous layers)
 
 
 @dataclasses.dataclass

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from qldpcsim_torch.decoders.checknode import check_node
 from qldpcsim_torch.decoders.common import (
     DecodeResult,
     DecoderConfig,
@@ -37,8 +38,6 @@ from qldpcsim_torch.decoders.common import (
     build_layers,
 )
 from qldpcsim_torch.ops.ms_qc_cuda import llr_prior
-
-_TANH_FLOOR = 1e-12
 
 
 def supports(layers: Optional[LayerSchedule]) -> bool:
@@ -80,32 +79,6 @@ class SeqDecoder(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(arr), dtype=dt, device=device))
 
-    def _cn(self, mv, mask, ss_r):
-        """Check-node update on one row's (B, dmax) v2c block."""
-        if self.kind == "MS":
-            sign = 1.0 - 2.0 * (mv < 0).to(torch.float32)
-            a = torch.where(mask, mv.abs(), torch.inf)
-            min1 = a.min(dim=-1, keepdim=True).values
-            # first position of the minimum, as the reference's argmin
-            first = (a == min1).to(torch.int8).argmax(dim=-1, keepdim=True)
-            a2 = a.scatter(-1, first, torch.inf)
-            min2 = a2.min(dim=-1, keepdim=True).values
-            min1 = torch.where(torch.isinf(min1), 0.0, min1)
-            min2 = torch.where(torch.isinf(min2), 0.0, min2)
-            parity = ((mv < 0) & mask).sum(dim=-1, keepdim=True)
-            prod_sign = 1.0 - 2.0 * (parity & 1).to(torch.float32)
-            mag = torch.where(mv.abs() == min1, min2, min1)
-            out = self.beta * ss_r[:, None] * prod_sign * sign * mag
-        else:
-            t = torch.tanh(mv * 0.5)
-            t = torch.where(mask, t, 1.0)
-            t = torch.where(t < 0, -1.0, 1.0) * torch.clamp_min(
-                t.abs(), _TANH_FLOOR)
-            prod = t.prod(dim=-1, keepdim=True)
-            th2 = torch.clamp(prod / t, -self.clamp, self.clamp)
-            out = ss_r[:, None] * 2.0 * torch.atanh(th2)
-        return torch.where(mask, out, 0.0)
-
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         B = syndromes.shape[0]
         dev = syndromes.device
@@ -130,7 +103,9 @@ class SeqDecoder(nn.Module):
                 c2v_r = c2v[:, r]                                # (B, dmax)
                 pos_r = posterior[:, vars_r]
                 mv = torch.where(mask_r, pos_r - c2v_r, 0.0)
-                new_c2v = self._cn(mv, mask_r, syn_sign[:, r])
+                new_c2v = check_node(self.kind, mv, mask_r,
+                                     syn_sign[:, r, None], self.beta,
+                                     self.clamp)
                 active = ~done
                 delta = torch.where(mask_r & active[:, None],
                                     new_c2v - c2v_r, 0.0)

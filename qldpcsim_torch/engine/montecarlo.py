@@ -3,9 +3,10 @@
 `simulate` is the p-sweep with the reference simulator's signature: one
 `ShotPipeline` for the code and decoder, then `simulate_p` per p-point.
 Per p-point: per-tile threefry keys -> depolarizing channel and syndromes ->
-X and Z decodes (the straggler cascade around the QC MS or BP decoder) ->
-OSD over each side's decoder-failed shots, when enabled -> classification
-counters, summed over chunks. The key chain is the reference's (seed ->
+X and Z decodes (`decoders.make_decoder`: MS or BP over any H, in the
+straggler cascade when the budget is deep; BF; NG) -> OSD over each side's
+decoder-failed shots, when enabled (MS and BP) -> classification counters,
+summed over chunks. The key chain is the reference's (seed ->
 p-index -> global tile, 64-shot tiles), so a run's counters equal the
 reference's on its threefry path, and do not depend on the device or the
 batch size.
@@ -80,10 +81,14 @@ class SimConfig:
     batch_size: int = 0           # 0 = auto
     layer_compat: bool = False    # reproduce the reference's cross-wired
                                   # layers
+    bf_residual: str = "mod2"     # BF residual: "mod2" | "bool" (the
+                                  # reference simulator's; decoders/bf.py)
     validate_encoding: bool = False
     checkpoint_dir: Optional[str] = None
     progress: bool = False
-    impl: str = "auto"            # decoder implementation: auto | qc | seq
+    impl: str = "auto"            # decoder implementation override
+                                  # (DecoderConfig.impl):
+                                  # auto | edge | mxu | seq | qc | gh
     device: str = "cuda"          # "cuda" (the kernels) | "cpu" (their plain
                                   # PyTorch versions)
 
@@ -93,6 +98,7 @@ class SimConfig:
             max_iter=self.dec_iterations,
             schedule=self.dec_schedule,
             eps=self.eps,
+            bf_residual=self.bf_residual,
             impl=self.impl,
         )
 
@@ -123,9 +129,10 @@ def _resolve_device(name: str) -> torch.device:
 
 class ShotPipeline(nn.Module):
     """Per-(code, decoder-config) shot pipeline on one device, reusable
-    across p: the X and Z decoders, OSD over each side's decoder-failed
-    shots when `cfg.osd_order >= 0` (MS and BP, as the reference), and the
-    classifier. `osd_shots` counts the shots each side sent to OSD."""
+    across p: the X and Z decoders (MS, BP, BF or NG), OSD over each side's
+    decoder-failed shots when `cfg.osd_order >= 0` (MS and BP only, as the
+    reference: BF and NG give no posterior), and the classifier.
+    `osd_shots` counts the shots each side sent to OSD."""
 
     def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig):
         super().__init__()
@@ -141,12 +148,17 @@ class ShotPipeline(nn.Module):
         dcfg = cfg.decoder_config()
         self.dcfg = dcfg
 
-        # X errors are decoded through Hz, Z errors through Hx.
-        sched = dcfg.schedule.upper()
-        layers_x = build_layers(self.Hz, sched,
-                                H_layerize=self.Hx if cfg.layer_compat else None)
-        layers_z = build_layers(self.Hx, sched,
-                                H_layerize=self.Hz if cfg.layer_compat else None)
+        # X errors are decoded through Hz, Z errors through Hx. BF and NG
+        # have no schedule.
+        layers_x = layers_z = None
+        if dcfg.dec_type.upper() in ("MS", "BP"):
+            sched = dcfg.schedule.upper()
+            layers_x = build_layers(
+                self.Hz, sched,
+                H_layerize=self.Hx if cfg.layer_compat else None)
+            layers_z = build_layers(
+                self.Hx, sched,
+                H_layerize=self.Hz if cfg.layer_compat else None)
         self.dec_x = make_decoder(TannerGraph.build(self.Hz), dcfg,
                                   layers=layers_x, device=self.device)
         self.dec_z = make_decoder(TannerGraph.build(self.Hx), dcfg,

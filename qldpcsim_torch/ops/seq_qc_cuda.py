@@ -89,18 +89,17 @@ def serial_order_is_natural(layers: Optional[LayerSchedule], m: int) -> bool:
     return rows == list(range(m))
 
 
-def _two_smallest(a: torch.Tensor):
+def _two_smallest(a: torch.Tensor, dim: int = 0):
     """m1, m2 of the reference's running min / second min over the slots
-    (dim 0) of a (deg, B) block, 1e30 -> 0. The strict `a < m1` update keeps
-    the smallest value in m1 and the second smallest, counted with
+    (`dim`) of a block of magnitudes, 1e30 -> 0. The strict `a < m1` update
+    keeps the smallest value in m1 and the second smallest, counted with
     multiplicity, in m2: a selection, so no rounding is involved."""
-    B = a.shape[1]
-    if a.shape[0] >= 2:
-        low = torch.topk(a, 2, dim=0, largest=False).values
-        m1, m2 = low[0], low[1]
+    if a.shape[dim] >= 2:
+        low = torch.topk(a, 2, dim=dim, largest=False).values
+        m1, m2 = low.select(dim, 0), low.select(dim, 1)
     else:
-        m1 = a[0] if a.shape[0] else a.new_full((B,), _BIG)
-        m2 = a.new_full((B,), _BIG)
+        m2 = torch.full_like(a.sum(dim=dim), _BIG)
+        m1 = a.select(dim, 0) if a.shape[dim] else m2
     m1 = torch.where(m1 >= _BIG, 0.0, m1)
     m2 = torch.where(m2 >= _BIG, 0.0, m2)
     return m1, m2

@@ -21,6 +21,7 @@ from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
 from qldpcsim_torch.ops import (
     _build,
     channel_cuda,
+    general_h_cuda,
     gf2_elim_cuda,
     ms_qc_cuda,
     seq_qc_cuda,
@@ -58,6 +59,31 @@ def _seq_decoder(H, device, max_iter, kind="MS"):
         layers=build_layers(H, "S"), device=device, kind=kind)
 
 
+def _general_matrix(name):
+    """Matrices with no circulant lift: lp118_0's Hz with its columns
+    permuted (240 x 544, row weight 8), bicycle's Hz (73 x 146, row weight
+    18, one-row layers), and a random 240 x 544 matrix of row weights 3 to
+    8."""
+    if name == "lp118_perm":
+        perm = np.random.default_rng(118).permutation(544)
+        H = (np.asarray(get_code("lp118_0").Hz) % 2)[:, perm]
+    elif name == "bicycle":
+        H = np.asarray(get_code("bicycle").Hz) % 2
+    else:
+        rng = np.random.default_rng(7)
+        H = np.zeros((240, 544), np.int8)
+        for i in range(240):
+            H[i, rng.choice(544, int(rng.integers(3, 9)), replace=False)] = 1
+    assert detect_qc(H) is None
+    return H.astype(np.int8)
+
+
+def _gh_decoder(H, sched, device, max_iter, kind="MS"):
+    return general_h_cuda.make_gh_decoder(
+        H, DecoderConfig(dec_type=kind, max_iter=max_iter, schedule=sched),
+        layers=build_layers(H, sched), device=device, kind=kind)
+
+
 def _permuted_columns(code, B, seed, device):
     st = OSDStatic.build(np.asarray(get_code(code).Hz) % 2)
     rng = np.random.default_rng(seed)
@@ -86,6 +112,13 @@ def test_wrappers_reject_malformed_input():
         seq_qc_cuda.seq_qc_cuda(seq, torch.zeros(H.shape[0] + 1, 8), 1.0)
     with pytest.raises(ValueError):
         seq_qc_cuda.seq_qc_cuda(seq, torch.zeros(8, H.shape[0]).T, 1.0)
+    gh = _gh_decoder(_general_matrix("bicycle"), "L", "cpu", 4)
+    with pytest.raises(ValueError):
+        general_h_cuda.general_h_cuda(gh, torch.zeros(74, 8), 1.0)
+    with pytest.raises(ValueError):
+        general_h_cuda.general_h_cuda(gh, torch.zeros(73, 8,
+                                                      dtype=torch.float64),
+                                      1.0)
 
 
 @pytest.mark.parametrize("shape,dtype,r,rW", [
@@ -113,6 +146,10 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         seq_qc_cuda.seq_qc(_seq_decoder(H, "cpu", 4),
                            torch.zeros(H.shape[0], 8, device="meta"), 1.0)
+    with pytest.raises(ValueError):
+        general_h_cuda.general_h(
+            _gh_decoder(_general_matrix("bicycle"), "F", "cpu", 4),
+            torch.zeros(73, 8, device="meta"), 1.0)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -203,6 +240,82 @@ def test_seq_qc_kernel_equals_plain(cuda_device, kind, code, B, max_iter,
         assert torch.equal(ki, pi) and torch.equal(kc, pc)
         assert torch.equal(kp < 0, pp < 0)
         assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,max_iter", [(1, 20), (63, 20), (4096, 4)])
+@pytest.mark.parametrize("name", ["lp118_perm", "bicycle", "irregular"])
+@pytest.mark.parametrize("sched", ["L", "F"])
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+def test_general_h_kernel_equals_plain(cuda_device, kind, sched, name, B,
+                                       max_iter):
+    """Kernel E against its plain version: n_iter and converged equal, and
+    the posterior equal by value on every element (tolerance 0): under L
+    each posterior entry takes one delta per layer, under F both sum a
+    variable's deltas in ascending edge order; BP through the CUDA math
+    library's tanhf and logf on both sides."""
+    H = _general_matrix(name)
+    dec = _gh_decoder(H, sched, cuda_device, max_iter, kind)
+    syn_T = _syndromes(3, H, B, 0.01 if name == "bicycle" else 0.017,
+                       cuda_device).T.contiguous()
+    if B > 1:
+        syn_T[:, 0] = 0.0           # a zero syndrome: one iteration
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    before = dict(general_h_cuda.LAUNCHES)
+    kp, ki, kc = general_h_cuda.general_h(dec, syn_T, lch)
+    pp, pi, pc = general_h_cuda.general_h_plain(dec, syn_T, lch)
+    assert general_h_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
+    if B > 1:
+        assert int(ki[0]) == 1 and bool(kc[0]) and not (kp[:, 0] < 0).any()
+        assert kc.any() and ki.max() > 1
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp < 0, pp < 0)
+    assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_general_h_path_on_card_equals_cpu(cuda_device):
+    """Min-sum, layered, on the column-permuted lp118_0 through
+    `simulate_p`: the card's counters equal the CPU's, through kernel E and
+    neither QC kernel."""
+    perm = np.random.default_rng(118).permutation(544)
+    c = get_code("lp118_0")
+    Hx = (np.asarray(c.Hx) % 2)[:, perm]
+    Hz = (np.asarray(c.Hz) % 2)[:, perm]
+    cfg = SimConfig(shots=1000, dec_type="MS", dec_iterations=50,
+                    dec_schedule="L", batch_size=512, rng_seed=3,
+                    device="cpu")
+    on_cpu = simulate_p(Hx, Hz, 0.05, cfg)
+    before = (dict(general_h_cuda.LAUNCHES), dict(ms_qc_cuda.LAUNCHES),
+              dict(seq_qc_cuda.LAUNCHES))
+    on_card = simulate_p(Hx, Hz, 0.05,
+                         dataclasses.replace(cfg, device="cuda"))
+    assert general_h_cuda.LAUNCHES["MS"] >= before[0]["MS"] + 4
+    assert ms_qc_cuda.LAUNCHES == before[1]
+    assert seq_qc_cuda.LAUNCHES == before[2]
+    assert on_card.counters == on_cpu.counters
+    assert on_card.avg_iterations_x == on_cpu.avg_iterations_x
+    assert on_card.avg_iterations_z == on_cpu.avg_iterations_z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,kw", [
+    ("steane", dict(dec_type="MS", dec_iterations=50, dec_schedule="L")),
+    ("bicycle", dict(dec_type="BF")),
+    ("bicycle", dict(dec_type="NG")),
+])
+def test_small_codes_on_card_equal_cpu(cuda_device, code, kw):
+    """The plain-torch decoders of configs 2 and 3 on the card: integer
+    arithmetic (BF, NG) or one delta per variable and layer (Steane MS-L),
+    so the counters equal the CPU's."""
+    c = get_code(code)
+    cfg = SimConfig(shots=1024, batch_size=512, rng_seed=1, device="cpu",
+                    **kw)
+    on_cpu = simulate_p(c.Hx, c.Hz, 0.03, cfg)
+    on_card = simulate_p(c.Hx, c.Hz, 0.03,
+                         dataclasses.replace(cfg, device="cuda"))
+    assert on_card.counters == on_cpu.counters
+    assert on_card.avg_iterations_x == on_cpu.avg_iterations_x
 
 
 @pytest.mark.cuda

@@ -259,9 +259,9 @@ def test_batch_and_tile_sizes():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(dec_type="BF", osd_order=2), NotImplementedError),
+    (dict(dec_type="BF", bf_residual="or"), ValueError),
     (dict(validate_encoding=True), NotImplementedError),
-    (dict(dec_type="NG"), NotImplementedError),
+    (dict(dec_type="GN"), ValueError),
     (dict(device="mps"), ValueError),
 ])
 def test_pipeline_raises_outside_the_slice(kw, err):
@@ -269,6 +269,17 @@ def test_pipeline_raises_outside_the_slice(kw, err):
     with pytest.raises(err):
         ShotPipeline(c.Hx, c.Hz, SimConfig(dec_schedule="L", **{
             "device": "cpu", **kw}))
+
+
+@pytest.mark.parametrize("dec_type", ["BF", "NG"])
+def test_bf_and_ng_pipelines_take_no_osd_and_no_schedule(dec_type):
+    """BF and NG give no posterior: `osd_order` is ignored for them, as in
+    the reference, and so is the schedule."""
+    c = get_code("steane")
+    pipe = ShotPipeline(c.Hx, c.Hz, SimConfig(
+        dec_type=dec_type, osd_order=2, dec_schedule="?", device="cpu"))
+    assert not pipe.use_osd
+    assert type(pipe.dec_x).__name__ == f"{dec_type}Decoder"
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
@@ -446,3 +457,169 @@ def test_changed_run_misses_the_checkpoint(tmp_path, change):
     fresh = simulate_p(Hx, Hz, p, dataclasses.replace(
         cfg2, checkpoint_dir=None), p_index=p_index)
     assert _counters(res) == _counters(fresh)
+
+
+# --- codes with no circulant lift: configs 1-3 at a small size, and a
+# column-permuted lp04_0 through the general-H decoder --------------------
+
+def _ref_decoders(Hx, Hz, make):
+    """(dec_x, dec_z) of the reference chain: X errors through Hz."""
+    return make(Hz), make(Hx)
+
+
+def _ref_mxu_cascade(H, max_iter, sched):
+    from qldpcsim_tpu.decoders.ms_mxu import make_ms_mxu_decoder
+
+    cfg = RefConfig(dec_type="MS", max_iter=max_iter, schedule=sched)
+    return make_cascade(make_ms_mxu_decoder, RefGraph.build(H), cfg,
+                        ref_build_layers(H, sched))
+
+
+def _ref_gh_cascade(H, max_iter):
+    """make_cascade(make_gh_decoder), layered, Pallas in interpret mode."""
+    from qldpcsim_tpu.ops.general_h_pallas import make_gh_decoder
+
+    cfg = RefConfig(dec_type="MS", max_iter=max_iter, schedule="L")
+
+    def factory(graph, c, layers=None):
+        return make_gh_decoder(graph.H, c, layers=layers, B_blk=64,
+                               interpret=True)
+
+    return make_cascade(factory, RefGraph.build(H), cfg,
+                        ref_build_layers(H, "L"))
+
+
+@pytest.mark.parametrize("p_index,p", enumerate([0.01, 0.03, 0.05]))
+def test_config2_steane_counters_bit_exact_with_reference_chain(p_index, p):
+    """Config 2 (Steane, MS-L-50) at 2048 shots per p: the incidence decoder
+    in the cascade; the 9 counters equal those of a chain of the JAX
+    package's own functions around its incidence decoder: tolerance 0 (one
+    delta per variable and layer, so the products sum nothing)."""
+    c = get_code("steane")
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    cfg = SimConfig(shots=2048, dec_type="MS", dec_iterations=50,
+                    dec_schedule="L", batch_size=1024, rng_seed=0,
+                    device="cpu")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    assert isinstance(pipe.dec_x, Cascade)
+    assert type(pipe.dec_x.decs[0]).__name__ == "MxuDecoder"
+    res = simulate_p(Hx, Hz, p, cfg, pipeline=pipe, p_index=p_index)
+    ref = _reference_counters(
+        Hx, Hz, p, 2048, 1024, 0, p_index, 50,
+        decoders=_ref_decoders(Hx, Hz,
+                               lambda H: _ref_mxu_cascade(H, 50, "L")))
+    assert _counters(res) == ref
+    assert ref["nIterAccX"] > 2048 and ref["logicalErrors_X"] >= 0
+
+
+@pytest.mark.parametrize("dec_type", ["BF", "NG"])
+@pytest.mark.parametrize("p_index,p", enumerate([0.01, 0.03]))
+def test_config3_bicycle_counters_bit_exact_with_reference_chain(
+        dec_type, p_index, p):
+    """Config 3 (bicycle, BF-50 and NG) at 512 shots per p: integer
+    arithmetic, so the 9 counters equal the reference chain's: tolerance 0.
+    NG's average counts its 0-step shots."""
+    from qldpcsim_tpu.decoders.bf import make_bf_decoder
+    from qldpcsim_tpu.decoders.ng import make_ng_decoder
+
+    c = get_code("bicycle")
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    cfg = SimConfig(shots=512, dec_type=dec_type, dec_iterations=50,
+                    dec_schedule="F", batch_size=256, rng_seed=0,
+                    device="cpu")
+    res = simulate_p(Hx, Hz, p, cfg, p_index=p_index)
+    make = make_bf_decoder if dec_type == "BF" else make_ng_decoder
+    ref = _reference_counters(
+        Hx, Hz, p, 512, 256, 0, p_index, 50,
+        decoders=_ref_decoders(Hx, Hz, lambda H: make(
+            RefGraph.build(H), RefConfig(dec_type=dec_type))))
+    assert _counters(res) == ref
+    assert ref["DecFailures_X"] > 0 and ref["decSuccessExact"] > 0
+    if dec_type == "NG":   # some shots have a zero syndrome: 0 steps
+        assert res.avg_iterations_x < 146
+
+
+@pytest.mark.parametrize("p_index,p", enumerate([0.01, 0.05]))
+def test_config1_shor_bp_qbler_within_4_sigma_of_reference_simulate_p(
+        p_index, p):
+    """Config 1 (Shor, BP-F-99, 1000 shots per p, uncut): BP's tanh and log
+    differ in the last ulp between XLA and torch, so qBLER is held to 4
+    sigma of the JAX package's simulate_p. Shor's 2 x 9 Hx decodes as it
+    is (the reference pads it to 8 rows for its TPU compiler)."""
+    c = get_code("shor")
+    kw = dict(shots=1000, dec_type="BP", dec_iterations=99,
+              dec_schedule="F", rng_seed=0)
+    ref = ref_simulate_p(c.Hx, c.Hz, p, RefSimConfig(**kw, device="cpu"),
+                         p_index=p_index)
+    pipe = ShotPipeline(c.Hx, c.Hz, SimConfig(**kw, device="cpu"))
+    assert type(pipe.dec_z.decs[0]).__name__ == "MxuDecoder"
+    assert pipe.dec_z.decs[0].m == 2 and pipe.batch == 960
+    res = simulate_p(c.Hx, c.Hz, p, pipe.cfg, pipeline=pipe, p_index=p_index)
+    for a, b in ((ref.qbler, res.qbler), (ref.qbler_honest, res.qbler_honest)):
+        pool = (a + b) / 2
+        sigma = math.sqrt(max(pool * (1 - pool), 1e-12) * 2 / 1000)
+        assert abs(a - b) <= 4 * sigma, (a, b)
+    assert abs(ref.avg_iterations_x - res.avg_iterations_x) <= 0.2
+    assert res.warm_shots == 40
+
+
+@pytest.fixture(scope="module")
+def permuted_lp04():
+    """lp04_0 with one column permutation on both sides: the same code up
+    to a relabelling of qubits, with no circulant lift left."""
+    c = get_code("lp04_0")
+    perm = np.random.default_rng(4).permutation(c.Hx.shape[1])
+    Hx = (np.asarray(c.Hx) % 2)[:, perm].astype(np.int8)
+    Hz = (np.asarray(c.Hz) % 2)[:, perm].astype(np.int8)
+    assert detect_qc(Hx) is None and detect_qc(Hz) is None
+    assert not ((Hx.astype(np.int64) @ Hz.T) % 2).any()
+    return Hx, Hz
+
+
+def test_general_h_counters_bit_exact_with_reference_chain(permuted_lp04):
+    """MS-L-50 on the permuted lp04_0 (588 edge slots: the general-H decoder
+    by itself, in the cascade): the 9 counters equal those of a chain of
+    the JAX package's own functions around its general-H Pallas kernel in
+    interpret mode: tolerance 0."""
+    Hx, Hz = permuted_lp04
+    cfg = SimConfig(shots=300, dec_type="MS", dec_iterations=50,
+                    dec_schedule="L", batch_size=128, rng_seed=3,
+                    device="cpu")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    assert isinstance(pipe.dec_x, Cascade)
+    assert all(type(d).__name__ == "GHDecoder" for d in pipe.dec_x.decs)
+    res = simulate_p(Hx, Hz, 0.06, cfg, pipeline=pipe, p_index=1)
+    ref = _reference_counters(
+        Hx, Hz, 0.06, 300, 128, 3, 1, 50,
+        decoders=_ref_decoders(Hx, Hz, lambda H: _ref_gh_cascade(H, 50)))
+    assert _counters(res) == ref
+    assert ref["DecFailures_X"] + ref["DecFailures_Z"] > 0
+    assert ref["nIterAccX"] > 300
+
+
+def test_general_h_by_path_and_against_the_lifted_code(permuted_lp04,
+                                                        tmp_path):
+    """The reference's input mode: the matrices as .npy files through
+    `simulate`. A relabelling of qubits changes no statistic: qBLER within 4
+    sigma of lp04_0's own (kernel B's plain version) at the same settings,
+    and of the JAX package's simulate_p on the permuted matrices."""
+    Hx, Hz = permuted_lp04
+    np.save(tmp_path / "Hx.npy", Hx)
+    np.save(tmp_path / "Hz.npy", Hz)
+    shots, p = 2048, 0.07
+    kw = dict(shots=shots, dec_type="MS", dec_iterations=30,
+              dec_schedule="L", rng_seed=2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = simulate(str(tmp_path / "Hx.npy"), str(tmp_path / "Hz.npy"),
+                       [p], shots=shots, decType="MS", decIterations=30,
+                       decSchedule="L", rngSeed=2, device="cpu")[0]
+    c = get_code("lp04_0")
+    lifted = simulate_p(c.Hx, c.Hz, p, SimConfig(**kw, device="cpu"))
+    ref = ref_simulate_p(Hx, Hz, p, RefSimConfig(**kw, device="cpu"))
+    for other in (lifted, ref):
+        for a, b in ((other.qbler, res.qbler),
+                     (other.qbler_honest, res.qbler_honest)):
+            pool = (a + b) / 2
+            sigma = math.sqrt(max(pool * (1 - pool), 1e-12) * 2 / shots)
+            assert abs(a - b) <= 4 * sigma, (a, b)
+    assert 0.0 < res.qbler < 1.0

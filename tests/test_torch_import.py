@@ -35,6 +35,10 @@ print(",".join(bad))
     "from qldpcsim_torch import simulate; "
     "import qldpcsim_torch.ops.seq_qc_cuda, "
     "qldpcsim_torch.decoders.sequential, qldpcsim_torch.utils.checkpoint",
+    "import qldpcsim_torch.ops.general_h_cuda, qldpcsim_torch.decoders.ms, "
+    "qldpcsim_torch.decoders.bp, qldpcsim_torch.decoders.ms_mxu, "
+    "qldpcsim_torch.decoders.bp_mxu, qldpcsim_torch.decoders.bf, "
+    "qldpcsim_torch.decoders.ng, qldpcsim_torch.decoders.checknode",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -36,6 +36,8 @@ from qldpcsim_torch.decoders import (
     make_decoder,
 )
 from qldpcsim_torch.decoders.cascade import Cascade
+from qldpcsim_torch.decoders.common import LayerSchedule
+from qldpcsim_torch.decoders.ms_mxu import MxuDecoder
 from qldpcsim_torch.decoders.sequential import (
     SeqDecoder,
     make_bp_seq_decoder,
@@ -159,8 +161,9 @@ def test_zero_syndrome_and_row_order():
 @pytest.mark.parametrize("kind", ["MS", "BP"])
 def test_serial_routing(kind):
     """schedule="S": a circulant-lifted H in natural one-row order goes to
-    the serial QC decoder (kernel D), anything else with one-row layers to
-    the row-sequential decoder; deep budgets get the guarded cascade."""
+    the serial QC decoder (kernel D), other matrices with one-row layers to
+    the row-sequential decoder or, with at most 8 of them, to the incidence
+    decoder; deep budgets get the guarded cascade."""
     qc_graph = TannerGraph.build(_H("lp04_0", "Hz"))
     small = make_decoder(qc_graph, DecoderConfig(dec_type=kind, max_iter=8,
                                                  schedule="S"))
@@ -174,9 +177,19 @@ def test_serial_routing(kind):
     forced = make_decoder(qc_graph, DecoderConfig(
         dec_type=kind, max_iter=8, schedule="S", impl="qc"))
     assert isinstance(forced, SeqQCDecoder)
+    # a matrix with no circulant lift: the row-sequential decoder from 9
+    # one-row layers on, the incidence decoder below that (the reference's
+    # rule), and the row-sequential decoder when it is asked for
+    dec = make_decoder(TannerGraph.build(_H("bicycle", "Hz")), DecoderConfig(
+        dec_type=kind, max_iter=8, schedule="S"))
+    assert isinstance(dec, SeqDecoder) and dec.kind == kind
     for code in ("steane", "shor"):
-        dec = make_decoder(TannerGraph.build(_H(code, "Hz")), DecoderConfig(
+        graph = TannerGraph.build(_H(code, "Hz"))
+        dec = make_decoder(graph, DecoderConfig(
             dec_type=kind, max_iter=8, schedule="S"))
+        assert isinstance(dec, MxuDecoder) and dec.kind == kind
+        dec = make_decoder(graph, DecoderConfig(
+            dec_type=kind, max_iter=8, schedule="S", impl="seq"))
         assert isinstance(dec, SeqDecoder) and dec.kind == kind
     # impl="seq" forces the row-sequential path on a QC matrix too
     seq = make_decoder(qc_graph, DecoderConfig(dec_type=kind, max_iter=8,
@@ -187,28 +200,42 @@ def test_serial_routing(kind):
     Hx = _H("shor", "Hx")
     lay = build_layers(Hx, "S", H_layerize=_H("shor", "Hz"))
     dec = make_decoder(TannerGraph.build(Hx), DecoderConfig(
-        dec_type=kind, max_iter=8, schedule="S"), layers=lay)
+        dec_type=kind, max_iter=8, schedule="S", impl="seq"), layers=lay)
     assert isinstance(dec, SeqDecoder) and dec.order == [0, 1]
 
 
-@pytest.mark.parametrize("code,cfg,err,match", [
-    ("steane", DecoderConfig(schedule="S", impl="qc"), ValueError,
+def _two_interleaved_layers(m):
+    """Layers that are neither contiguous runs nor single rows."""
+    return LayerSchedule.from_layers([np.arange(0, m, 2),
+                                      np.arange(1, m, 2)], m)
+
+
+@pytest.mark.parametrize("code,cfg,layers,err,match", [
+    ("steane", DecoderConfig(schedule="S", impl="qc"), None, ValueError,
      "serial qc kernel requires"),
-    ("lp04_0", DecoderConfig(schedule="F", impl="seq"), ValueError,
-     "seq path requires"),
-    ("lp04_0", DecoderConfig(schedule="L", impl="seq"), ValueError,
-     "seq path requires"),
-    ("steane", DecoderConfig(schedule="L", impl="qc"), ValueError,
+    ("lp04_0", DecoderConfig(schedule="F", impl="seq"),
+     _two_interleaved_layers, ValueError, "seq path requires"),
+    ("lp04_0", DecoderConfig(schedule="L", impl="seq"),
+     _two_interleaved_layers, ValueError, "seq path requires"),
+    ("steane", DecoderConfig(schedule="L", impl="qc"), None, ValueError,
      "qc kernel requires"),
-    ("steane", DecoderConfig(schedule="F"), NotImplementedError, "queue 1"),
-    ("lp04_0", DecoderConfig(schedule="S", impl="gh"), NotImplementedError,
-     "queue 1"),
-    ("lp04_0", DecoderConfig(dec_type="BF", schedule="S"),
-     NotImplementedError, "queue 1"),
+    ("steane", DecoderConfig(schedule="F", impl="mxu"),
+     _two_interleaved_layers, ValueError, "mxu path requires"),
+    ("lp04_0", DecoderConfig(schedule="S", impl="gh"), None, ValueError,
+     "gh kernel supports"),
+    ("lp04_0", DecoderConfig(dec_type="BF", schedule="S",
+                             bf_residual="any"), None, ValueError,
+     "bf_residual must be"),
 ])
-def test_routing_raises(code, cfg, err, match):
+def test_routing_raises(code, cfg, layers, err, match):
+    """`impl="seq"` and `impl="mxu"` raise only where neither the
+    row-sequential nor the incidence decoder fits the layers (as in the
+    reference, `impl="seq"` under F or L with contiguous layers takes the
+    incidence decoder: tests/test_torch_routing.py)."""
+    H = _H(code, "Hz")
     with pytest.raises(err, match=match):
-        make_decoder(TannerGraph.build(_H(code, "Hz")), cfg)
+        make_decoder(TannerGraph.build(H), cfg,
+                     layers=layers(H.shape[0]) if layers else None)
 
 
 def test_serial_qc_and_sequential_agree_on_decisions():
