@@ -6,7 +6,7 @@
 Phases (any failure raises and exits non-zero):
   1. toolchain: Python, torch and CUDA versions, nvcc, the card's name and
      power limit;
-  2. build the five CUDA kernels from `qldpcsim_torch/csrc/*.cu` with nvcc,
+  2. build the six CUDA kernels from `qldpcsim_torch/csrc/*.cu` with nvcc,
      one process per source, all at once, with their register counts;
   3. kernel A (threefry depolarizing channel) against its plain PyTorch
      version on the card: the flagship chunk's 64 tiles x 64 x 544 at
@@ -84,7 +84,33 @@ Phases (any failure raises and exits non-zero):
      bicycle BF-50 and NG (p = 0.01, 0.03; 5000 shots), each with counters
      and warm shots/s; the counters of Steane, BF and NG equal to a run on
      the CPU; configs 1 and 2 once more with kernel E forced (impl "gh"),
-     timed beside the incidence decoder that the routing gives them.
+     timed beside the incidence decoder that the routing gives them;
+ 21. kernel F (slot-stacked flooding over a circulant-lifted H), kinds MS
+     and BP, against its plain version on the card: lp118_0 side X at
+     p = 0.03, 4096 shots at 99 iterations (config 5's shape) and at the
+     cascade head's 4, and a 128-shot tail window at 99; the Tanner code
+     side X, 4096 shots at 30 iterations; lp04_0 (block-row degree 7), 4096
+     shots at 30; n_iter, converged and e_hat equal, the posterior equal by
+     value; beside it kernel B on the same syndromes: both times, a lone
+     shot's time per iteration for both, and the shots whose decisions
+     differ between the two kernels;
+ 22. kernel B with the convergence check after every layer group against
+     its plain version, MS and BP, lp118_0 layered, 4096 shots at 50
+     iterations, bit-exact, timed beside the per-iteration check;
+ 23. the command line: config 5 through `qldpcsim_torch.cli.main` (BP,
+     flooding, 99 iterations, OSD-2, p = 0.03, 65,536 shots, seed 0) with
+     kernel F opted in (QLDPC_QC_STACKED=1) and the group-level OSD pass:
+     launch counts (kernel F, kind BP, and kernel C; kernel B none), warm
+     shots/s beside phase 9's, qBLER within 4 sigma of phase 9's; CUDA-event
+     breakdowns of a chunk with OSD in the chunk and with the group-level
+     pass, each with its host syncs and kernel C launches; the first two
+     chunks on the CPU against the card, qBLER within 4 sigma; the same
+     entry point with --decType MS (flooding, 50 iterations, p = 0.05):
+     kernel F, kind MS, launched, and the counters of the first two chunks
+     equal on the card and the CPU; one run of `python3 -m qldpcsim_torch`
+     in a process of its own (4096 shots), its table and --out file parsed;
+ 24. `validate_encoding=True` on the flagship's first two chunks: counters
+     equal to phase 8's; one call of each `compat` decoder shim on the card.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over the card's 3.35 TB/s and its operations over 67 Top/s
@@ -269,8 +295,8 @@ def main():
         ShotPipeline, SimConfig, simulate, simulate_p)
     from qldpcsim_torch.engine.results import PPointResult
     from qldpcsim_torch.ops import (
-        _build, channel_cuda, general_h_cuda, gf2_elim_cuda, ms_qc_cuda,
-        seq_qc_cuda)
+        _build, channel_cuda, flood_qc_cuda, general_h_cuda, gf2_elim_cuda,
+        ms_qc_cuda, seq_qc_cuda)
     from qldpcsim_torch.ops.qc import detect_qc
     from qldpcsim_torch.parallel.keys import chunk_keys
     from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -287,6 +313,7 @@ def main():
             ms_qc_cuda.LAUNCHES[k] = 0
             seq_qc_cuda.LAUNCHES[k] = 0
             general_h_cuda.LAUNCHES[k] = 0
+            flood_qc_cuda.LAUNCHES[k] = 0
 
     def read_launches():
         return {"channel": channel_cuda.LAUNCHES,
@@ -296,7 +323,9 @@ def main():
                 "seq_qc MS": seq_qc_cuda.LAUNCHES["MS"],
                 "seq_qc BP": seq_qc_cuda.LAUNCHES["BP"],
                 "general_h MS": general_h_cuda.LAUNCHES["MS"],
-                "general_h BP": general_h_cuda.LAUNCHES["BP"]}
+                "general_h BP": general_h_cuda.LAUNCHES["BP"],
+                "flood_qc MS": flood_qc_cuda.LAUNCHES["MS"],
+                "flood_qc BP": flood_qc_cuda.LAUNCHES["BP"]}
 
     def phase(name):
         print(f"--- {name} (at {time.perf_counter() - t_start:.1f} s)",
@@ -316,7 +345,8 @@ def main():
 
     # 2. build, one nvcc per source, all at once
     phase("2 build")
-    sources = ("channel", "ms_qc", "gf2_elim", "seq_qc", "general_h")
+    sources = ("channel", "ms_qc", "gf2_elim", "seq_qc", "general_h",
+               "flood_qc")
     t0 = time.perf_counter()
     _build.load_all(sources)
     print(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s "
@@ -364,11 +394,11 @@ def main():
         return {"X": torch.remainder(ex.float() @ Hz_T, 2.0),
                 "Z": torch.remainder(ez.float() @ Hx_T, 2.0)}
 
-    def qc_decoder(H, dec_type, max_iter, sched):
+    def qc_decoder(H, dec_type, max_iter, sched, chk="iter", stacked=False):
         return ms_qc_cuda.make_qc_decoder(
             detect_qc(H), DecoderConfig(dec_type=dec_type, max_iter=max_iter,
-                                        schedule=sched),
-            layers=build_layers(H, sched), device=dev)
+                                        schedule=sched, qc_check_every=chk),
+            layers=build_layers(H, sched), device=dev, stacked=stacked)
 
     def compare_qc(label, dec, syn_T, lch, reps):
         """Kernel B against its plain version on one (m, B) syndrome set:
@@ -1050,6 +1080,352 @@ def main():
                       f"{ {k: v for k, v in lg.items() if v} }  [{smi}]")
                 check(lg[f"general_h {dec_type}"] > 0,
                       f"{label}: kernel E launched when forced")
+
+    # 21. kernel F against its plain version, with kernel B beside it
+    syn5 = syndromes_at(C5_P)["X"].contiguous()            # (B, m)
+    lp04 = get_code("lp04_0")
+    L4z = np.asarray(lp04.Hz) % 2
+    syn_l4 = syn_of(L4z, 0.04).T.contiguous()
+    syn_tan = synT["X"].T.contiguous()
+
+    def compare_flood(label, dec, syn_, lch_, reps):
+        """Kernel F against its plain version on one (B, m) syndrome set;
+        returns (kernel ms, plain ms, max |posterior diff|, equal?, bound).
+        The posterior is compared by value."""
+        kp, ki, kc = flood_qc_cuda.flood_qc_cuda(dec, syn_, lch_)
+        pp, pi, pc = flood_qc_cuda.flood_qc_plain(dec, syn_, lch_)
+        torch.cuda.synchronize()
+        err = float((kp - pp).abs().max())
+        diff_shots = int(((kp < 0) != (pp < 0)).any(dim=1).sum())
+        same = (torch.equal(ki, pi) and torch.equal(kc, pc)
+                and diff_shots == 0 and torch.equal(kp, pp))
+        k_ms = cuda_ms(lambda: flood_qc_cuda.flood_qc_cuda(dec, syn_, lch_),
+                       reps)
+        p_ms = cuda_ms(lambda: flood_qc_cuda.flood_qc_plain(dec, syn_, lch_),
+                       1)
+        ops = OPS_MS if dec.kind == "MS" else OPS_BP
+        bnd = bound(nbytes(syn_, kp, ki, kc),
+                    dec.tabs.n_slots * dec.tabs.L * int(ki.sum()) * ops)
+        print(f"{label} (B={syn_.shape[0]}, {dec.max_iter} it, degree "
+              f"{dec.tabs.n_slots // dec.tabs.m_b}): converged "
+              f"{int(kc.sum())}, mean n_iter {float(ki.float().mean()):.4f}; "
+              f"vs plain: n_iter differs on {int((ki != pi).sum())}, "
+              f"converged on {int((kc != pc).sum())}, e_hat on {diff_shots} "
+              f"shots, posterior elements differing by value "
+              f"{int((kp != pp).sum())}, max|post diff| {err}; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.6f} ms "
+              f"({bnd[1]}, sum n_iter {int(ki.sum())}, "
+              f"{nbytes(syn_, kp, ki, kc)} bytes)  [{smi}]")
+        return k_ms, p_ms, err, same, bnd
+
+    def beside_b(label, H, kind_, max_iter, syn_, lch_):
+        """Kernels F and B on the same syndromes: times, and the shots whose
+        results differ between the two."""
+        df = qc_decoder(H, kind_, max_iter, "F", stacked=True)
+        db = qc_decoder(H, kind_, max_iter, "F")
+        check(df.stacked and not db.stacked, "the keyword selects the kernel")
+        syn_T_ = syn_.T.contiguous()
+        fp, fi, fc = flood_qc_cuda.flood_qc_cuda(df, syn_, lch_)
+        bp_, bi, bc = ms_qc_cuda.ms_qc_cuda(db, syn_T_, lch_)
+        f_ms = cuda_ms(lambda: flood_qc_cuda.flood_qc_cuda(df, syn_, lch_), 5)
+        b_ms_ = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(db, syn_T_, lch_), 2)
+        e_diff = int(((fp < 0) != (bp_.T < 0)).any(dim=1).sum())
+        print(f"{label}: kernel F {f_ms:.4f} ms, kernel B {b_ms_:.3f} ms "
+              f"({b_ms_ / f_ms:.1f}x); between the two kernels e_hat differs "
+              f"on {e_diff} shots, n_iter on {int((fi != bi).sum())}, "
+              f"converged on {int((fc != bc).sum())}, max|post diff| "
+              f"{float((fp - bp_.T).abs().max())}  [{smi}]")
+        return e_diff, int((fi != bi).sum()), int((fc != bc).sum())
+
+    f_times, worst_f = {}, {}
+    phase("21 kernel F (slot-stacked flooding), kinds MS and BP")
+    for kind_ in ("MS", "BP"):
+        worst_f[kind_] = 0.0
+        deep = qc_decoder(Hz, kind_, C5_ITER, C5_SCHEDULE, stacked=True)
+        out = compare_flood(f"flood_qc {kind_} {CODE} side X p={C5_P}", deep,
+                            syn5, lch5, 5)
+        f_times[kind_] = out
+        worst_f[kind_] = max(worst_f[kind_], out[2])
+        check(out[3], f"kernel F {kind_} == plain ({CODE}, {C5_ITER} it)")
+        head = qc_decoder(Hz, kind_, GH_HEAD_ITER, "F", stacked=True)
+        out = compare_flood(f"flood_qc {kind_} {CODE} cascade head", head,
+                            syn5, lch5, 5)
+        worst_f[kind_] = max(worst_f[kind_], out[2])
+        check(out[3], f"kernel F {kind_} == plain ({CODE}, head)")
+        kc = flood_qc_cuda.flood_qc_cuda(head, syn5, lch5)[2]
+        tail = torch.nonzero(~kc).flatten()[:GH_TAIL_SHOTS]
+        check(tail.numel() == GH_TAIL_SHOTS, "the head left a tail window")
+        out = compare_flood(f"flood_qc {kind_} {CODE} tail window", deep,
+                            syn5[tail].contiguous(), lch5, 5)
+        worst_f[kind_] = max(worst_f[kind_], out[2])
+        check(out[3], f"kernel F {kind_} == plain ({CODE}, tail window)")
+        for label, H, syn_, lch_, iters in (
+                ("tanner", Tz, syn_tan, lch_seq, C4_ITER),
+                ("lp04_0", L4z, syn_l4, lch5, 30)):
+            out = compare_flood(
+                f"flood_qc {kind_} {label} side X",
+                qc_decoder(H, kind_, iters, "F", stacked=True), syn_, lch_, 5)
+            worst_f[kind_] = max(worst_f[kind_], out[2])
+            check(out[3], f"kernel F {kind_} == plain ({label})")
+        e_diff, i_diff, c_diff = beside_b(
+            f"{kind_}-F {C5_ITER} it, {CODE} side X, B={BATCH}, p={C5_P}", Hz,
+            kind_, C5_ITER, syn5, lch5)
+        # the two kernels associate differently (tree against left fold,
+        # deltas summed first against one by one): last-bit differences that
+        # a shot which never converges can amplify
+        check(max(e_diff, i_diff, c_diff) <= BATCH // 50,
+              f"{kind_}: kernels F and B decide alike on at least 98 % of "
+              "shots")
+        # a lone shot that runs every iteration
+        ki = flood_qc_cuda.flood_qc_cuda(deep, syn5, lch5)[1]
+        slow = torch.nonzero(ki == C5_ITER).flatten()
+        check(slow.numel() > 0, "a shot ran every iteration")
+        one = syn5[slow[:1]].contiguous()
+        one_T = one.T.contiguous()
+        db = qc_decoder(Hz, kind_, C5_ITER, "F")
+        lone_f = cuda_ms(lambda: flood_qc_cuda.flood_qc_cuda(deep, one, lch5),
+                         20)
+        lone_b = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(db, one_T, lch5), 2)
+        it_f = int(flood_qc_cuda.flood_qc_cuda(deep, one, lch5)[1][0])
+        it_b = int(ms_qc_cuda.ms_qc_cuda(db, one_T, lch5)[1][0])
+        print(f"{kind_}-F, a lone shot: kernel F {lone_f:.4f} ms for {it_f} "
+              f"iterations = {1e3 * lone_f / it_f:.3f} us per iteration (launch "
+              f"included); kernel B {lone_b:.3f} ms for {it_b} = "
+              f"{1e3 * lone_b / it_b:.1f} us per iteration  [{smi}]")
+
+    # 22. kernel B with the check after every layer group
+    phase("22 kernel B, check after every layer group")
+    syn50 = syndromes_at(P_POINT)["X"].T.contiguous()
+    layer_times = {}
+    for kind_ in ("MS", "BP"):
+        dec = qc_decoder(Hz, kind_, MAX_ITER, SCHEDULE, chk="layer")
+        check(dec.track_mis, "the layered schedule has several groups")
+        k_ms, p_ms, err, same, bnd = compare_qc(
+            f"ms_qc {kind_} {SCHEDULE} check-every-layer side X", dec, syn50,
+            lch, 3)
+        check(same, f"kernel B {kind_} with the per-layer check == plain")
+        di = qc_decoder(Hz, kind_, MAX_ITER, SCHEDULE)
+        i_ms = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(di, syn50, lch), 3)
+        li = ms_qc_cuda.ms_qc_cuda(dec, syn50, lch)
+        ii = ms_qc_cuda.ms_qc_cuda(di, syn50, lch)
+        layer_times[kind_] = (k_ms, i_ms)
+        print(f"  beside one check per iteration: {k_ms:.3f} ms against "
+              f"{i_ms:.3f} ms; n_iter differs on "
+              f"{int((li[1] != ii[1]).sum())} shots, converged on "
+              f"{int((li[2] != ii[2]).sum())}, e_hat on "
+              f"{int(((li[0] < 0) != (ii[0] < 0)).any(dim=0).sum())}  [{smi}]")
+
+    # 23. the command line, with kernel F opted in
+    phase("23 command line (config 5 and MS-F-50 through cli.main, kernel F)")
+    import contextlib
+    import io
+    import tempfile
+
+    from qldpcsim_torch import cli
+
+    os.environ["QLDPC_QC_STACKED"] = "1"   # read when a decoder is built
+
+    def run_cli(argv):
+        """cli.main(argv + --out) -> (the rows of --out, the printed text)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "out.jsonl")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main([*argv, "--out", path])
+            check(rc == 0, f"cli.main returned {rc}")
+            with open(path) as f:
+                rows = [json.loads(line) for line in f]
+        check("SIMULATION RESULTS" in text.getvalue(), "the CLI's table")
+        return rows, text.getvalue()
+
+    def qbler_close(a, b, shots_a, shots_b, what):
+        pool = (a * shots_a + b * shots_b) / (shots_a + shots_b)
+        sigma = math.sqrt(max(pool * (1 - pool), 1e-12)
+                          * (1 / shots_a + 1 / shots_b))
+        print(f"  {what}: {a!r} vs {b!r}, |diff| {abs(a - b)!r} vs 4 sigma "
+              f"{4 * sigma!r}")
+        check(abs(a - b) <= 4 * sigma, what)
+
+    c5_args = ["--code", CODE, "--p", str(C5_P), "--decType", "BP",
+               "--decSchedule", C5_SCHEDULE, "--decIterations", str(C5_ITER),
+               "--OSDorder", str(C5_ORDER), "--batch", str(BATCH),
+               "--rngSeed", str(SEED), "--quiet"]
+    reset_launches()
+    rows, text = run_cli([*c5_args, "--shots", str(C5_SHOTS)])
+    launches_cli = read_launches()
+    row5 = rows[0]
+    print(text[text.index("   Command line arguments:"):].rstrip())
+    print(f"config 5 through cli.main with kernel F: {C5_SHOTS} shots in "
+          f"{C5_SHOTS // BATCH} chunks; launches {launches_cli}")
+    print(f"  --out row {json.dumps(row5)}")
+    print(f"  warm {row5['shots_per_s_warm']:.1f} shots/s (phase 9, kernel B: "
+          f"{res5.shots_per_s_warm:.1f})  [{smi}]")
+    check(launches_cli["channel"] > 0 and launches_cli["flood_qc BP"] > 0
+          and launches_cli["gf2_elim"] > 0,
+          "kernels A, F (BP) and C launched on the command line's path")
+    check(launches_cli["ms_qc BP"] == 0 and launches_cli["ms_qc MS"] == 0
+          and launches_cli["flood_qc MS"] == 0,
+          "kernel B not launched when kernel F is opted in")
+    check(row5["shots"] == C5_SHOTS and math.isfinite(row5["qBLER"])
+          and 1.0 <= row5["Avg_number_of_iterations_X"] <= C5_ITER,
+          "the CLI's row is finite and of the expected shape")
+    qbler_close(row5["qBLER"], res5.qbler, C5_SHOTS, C5_SHOTS,
+                "config 5 qBLER, kernel F through the CLI against phase 9")
+    # chunk breakdowns: OSD in the chunk, and the group-level pass
+    pipeF = ShotPipeline(Hx, Hz, cfg5)
+    check(pipeF.dec_x.decs[0].stacked, "the pipeline's decoders take kernel F")
+    for d in (pipeF.dec_x, pipeF.dec_z):
+        d.stage_lanes = [0] * len(d.stages)
+    before, pipeF.osd_syncs = gf2_elim_cuda.LAUNCHES, 0
+    breakdown(pipeF, C5_P, ("channel", "decode X", "decode Z", "OSD",
+                            "classify"), smi)
+    print(f"  OSD in the chunk: {pipeF.osd_syncs / BREAKDOWN_CHUNKS:.2f} host "
+          f"syncs and {(gf2_elim_cuda.LAUNCHES - before) / BREAKDOWN_CHUNKS:.2f}"
+          f" kernel C launches per chunk; lanes per cascade stage "
+          f"{pipeF.dec_x.stages}: X {pipeF.dec_x.stage_lanes}")
+    key_p = fold_in(prng_key(SEED, device=dev), 0)
+    names = ("channel", "decode X", "decode Z", "classify + defer")
+    spans = np.zeros(len(names))
+    pending = []
+    before, pipeF.osd_syncs = gf2_elim_cuda.LAUNCHES, 0
+    valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    for ci in range(BREAKDOWN_CHUNKS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        kk = chunk_keys(key_p, ci * tpc, tpc)
+        ev[0].record()
+        ex, ez, sz, sx = pipeF._sample_chunk(kk, C5_P)
+        ev[1].record()
+        prior5 = np.float32(C5_P) / np.float32(3.0)
+        rx = pipeF.dec_x(sz, prior5)
+        ev[2].record()
+        rz = pipeF.dec_z(sx, prior5)
+        ev[3].record()
+        defer = pipeF._defer(ex, ez, sz, sx, rx, rz, valid)[1]
+        if defer is not None:
+            pending.append(defer)
+        ev[4].record()
+        ev[4].synchronize()
+        spans += [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    pipeF._osd_group_finish(pending)
+    ev[1].record()
+    ev[1].synchronize()
+    spans /= BREAKDOWN_CHUNKS
+    osd_ms = ev[0].elapsed_time(ev[1]) / BREAKDOWN_CHUNKS
+    total = spans.sum() + osd_ms
+    parts = ", ".join(f"{nm} {s_:.4f} ({100 * s_ / total:.1f}%)"
+                      for nm, s_ in zip(names + ("group OSD pass",),
+                                        list(spans) + [osd_ms]))
+    print(f"  chunk breakdown with the group-level pass (CUDA events, mean "
+          f"of {BREAKDOWN_CHUNKS} chunks, one pass over "
+          f"{sum(d['cx'].shape[0] for d in pending)} records, ms): {parts}, "
+          f"total {total:.4f}  [{smi}]")
+    print(f"  group-level pass: {pipeF.osd_syncs / BREAKDOWN_CHUNKS:.2f} host "
+          f"syncs and {(gf2_elim_cuda.LAUNCHES - before) / BREAKDOWN_CHUNKS:.2f}"
+          f" kernel C launches per chunk")
+    # the first chunks on the CPU and the card, both through the CLI
+    cross = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        cross[device] = run_cli([*c5_args, "--shots",
+                                 str(CROSS_CHUNKS * BATCH), "--device",
+                                 device])[0][0]
+        print(f"config 5 by CLI, first {CROSS_CHUNKS} chunks, {device}: "
+              f"{ {k: cross[device][k] for k in res5.counters} } "
+              f"({time.perf_counter() - t0:.1f} s)")
+    qbler_close(cross["cuda"]["qBLER"], cross["cpu"]["qBLER"],
+                CROSS_CHUNKS * BATCH, CROSS_CHUNKS * BATCH,
+                "config 5 by CLI, card against CPU")
+    # min-sum through the same entry point: counters are device-independent
+    ms_args = ["--code", CODE, "--p", str(P_POINT), "--decType", "MS",
+               "--decSchedule", "F", "--decIterations", str(MAX_ITER),
+               "--batch", str(BATCH), "--rngSeed", str(SEED), "--quiet"]
+    reset_launches()
+    rows, _ = run_cli([*ms_args, "--shots", str(SHOTS)])
+    launches_cli_ms = read_launches()
+    print(f"MS-F-{MAX_ITER} p={P_POINT} through cli.main with kernel F: "
+          f"{SHOTS} shots; launches {launches_cli_ms}")
+    print(f"  --out row {json.dumps(rows[0])}")
+    print(f"  warm {rows[0]['shots_per_s_warm']:.1f} shots/s  [{smi}]")
+    check(launches_cli_ms["flood_qc MS"] > 0
+          and launches_cli_ms["ms_qc MS"] == 0,
+          "kernel F (MS) launched on the command line's min-sum path")
+    timing = ("wall_time_s", "shots_per_s", "warm_time_s", "shots_per_s_warm")
+    cross_ms = {}
+    for device in ("cpu", "cuda"):
+        r = run_cli([*ms_args, "--shots", str(CROSS_CHUNKS * BATCH),
+                     "--device", device])[0][0]
+        cross_ms[device] = {k: v for k, v in r.items() if k not in timing}
+        print(f"MS-F by CLI, first {CROSS_CHUNKS} chunks, {device}: "
+              f"{cross_ms[device]}")
+    check(cross_ms["cpu"] == cross_ms["cuda"],
+          "MS-F through the CLI: GPU counters == CPU counters")
+    # the module entry point, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "qldpcsim_torch", *c5_args, "--shots",
+             str(BATCH), "--out", path], cwd=HERE, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=HERE))
+        check(proc.returncode == 0,
+              f"python -m qldpcsim_torch: rc {proc.returncode}\n"
+              f"{proc.stderr[-2000:]}")
+        with open(path) as f:
+            sub_row = json.loads(f.readline())
+    table = proc.stdout[proc.stdout.index("SIMULATION RESULTS"):]
+    cells = table.strip().splitlines()[-1].split("|")
+    print(f"python3 -m qldpcsim_torch ({BATCH} shots, "
+          f"{time.perf_counter() - t0:.1f} s): table row "
+          f"{[c_.strip() for c_ in cells]}; --out qBLER {sub_row['qBLER']!r}")
+    check(len(cells) == 5 and float(cells[0]) == C5_P
+          and abs(float(cells[1]) - sub_row["qBLER"]) <= 5e-3 * max(
+              sub_row["qBLER"], 1e-3) + 1e-9,
+          "the module's table agrees with its --out file")
+    check(sub_row["shots"] == BATCH and 0.0 <= sub_row["qBLER"] < 0.5,
+          "the module's --out row")
+    del os.environ["QLDPC_QC_STACKED"]
+
+    # 24. validate_encoding, and the compat shims on the card
+    phase("24 validate_encoding and the compat shims")
+    r = simulate_p(Hx, Hz, P_POINT, dataclasses.replace(
+        cfg, shots=CROSS_CHUNKS * BATCH, validate_encoding=True))
+    framed = dict(r.counters, nIterAccX=r.avg_iterations_x * r.shots,
+                  nIterAccZ=r.avg_iterations_z * r.shots)
+    print(f"validate_encoding, first {CROSS_CHUNKS} chunks of the flagship: "
+          f"{framed}")
+    check(framed == small["cuda"],
+          "validate_encoding leaves the flagship's counters as they are")
+    from qldpcsim_torch.compat import decoders as compat_decoders
+
+    # a light syndrome (its weight the least above zero): every decoder's
+    # easy case
+    weight = syn5.sum(dim=1)
+    weight[weight == 0] = syn5.shape[1]
+    one_syn = syn5[int(weight.argmin())].cpu().numpy().astype(np.int64)
+    Hz64 = Hz.astype(np.int64)
+    reset_launches()
+    for name, args, kw in (
+            ("NG_decoder", (), {}), ("BF_decoder", (), {}),
+            ("MS_decoder", (C5_P / 3,), {"max_iter": 50}),
+            ("BP_decoder", (C5_P / 3,), {"max_iter": 50, "OSDorder": 2})):
+        e, it = getattr(compat_decoders, name)(Hz, one_syn, *args, **kw)
+        ok = bool((((Hz64 @ e.astype(np.int64)) % 2) == one_syn).all())
+        print(f"compat.{name} on the card: weight {int(e.sum())}, {it} "
+              f"iterations, syndrome satisfied {ok}")
+        check(e.shape == (n,) and it >= 0, f"compat.{name} returns (e, it)")
+        if name in ("MS_decoder", "BP_decoder"):
+            check(ok, f"compat.{name} solves a light syndrome")
+    e = compat_decoders.OSDdec(Hz, np.zeros(n, np.int64), one_syn,
+                               np.full(n, 3.0, np.float32), 2)
+    check(bool((((Hz64 @ e.astype(np.int64)) % 2) == one_syn).all()),
+          "compat.OSDdec satisfies the syndrome")
+    la = read_launches()
+    print(f"compat launches {la}")
+    check(la["ms_qc MS"] > 0 and la["ms_qc BP"] > 0 and la["gf2_elim"] > 0,
+          "the compat shims ran kernels B and C on the card")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd):
@@ -1083,6 +1459,12 @@ def main():
         row("general_h_decode_bp", "general_h.cu", "general_h_pallas.py:92",
             launchesEb["general_h BP"], worst_e["BP"], e_bp[0], e_bp[1],
             e_bp[4]),
+        row("flood_qc_decode", "flood_qc.cu", "flood_qc_pallas.py:53",
+            launches_cli_ms["flood_qc MS"], worst_f["MS"], f_times["MS"][0],
+            f_times["MS"][1], f_times["MS"][4]),
+        row("flood_qc_decode_bp", "flood_qc.cu", "flood_qc_pallas.py:53",
+            launches_cli["flood_qc BP"], worst_f["BP"], f_times["BP"][0],
+            f_times["BP"][1], f_times["BP"][4]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on its main path")

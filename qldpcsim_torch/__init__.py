@@ -7,7 +7,8 @@ the repository unchanged). Modules mirror the reference's layout and names:
     structure detection (numpy only; the port's own copies);
   * `utils.threefry`, `parallel.keys` — the reference's threefry key chain
     (seed -> p-index -> global tile), bit-exact;
-  * `channel` — the depolarizing channel and syndromes;
+  * `channel` — the depolarizing channel and syndromes, and the CSS
+    encoder's random codeword frames (`validate_encoding`);
   * `decoders` — min-sum and BP over any parity-check matrix under the
     flooding, layered and serial schedules (the circulant-lifted and
     general-H kernels, the row-sequential, incidence and edge-layout
@@ -16,7 +17,9 @@ the repository unchanged). Modules mirror the reference's layout and names:
   * `engine` — classification counters and the Monte-Carlo loop
     (`ShotPipeline`, `simulate_p`, and the p-sweep `simulate`);
   * `ops` — the hand-written CUDA kernels (`csrc/*.cu`) and their plain
-    PyTorch versions.
+    PyTorch versions;
+  * `cli` (`python -m qldpcsim_torch`) and `compat` — the command line and
+    the reference simulator's API.
 
 On a CUDA device every kernel of the path runs; on CPU tensors the plain
 PyTorch versions run. Nothing here imports jax or `qldpcsim_tpu`.

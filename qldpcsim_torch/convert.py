@@ -8,7 +8,9 @@ last two into the port's:
   * `keys_from_reference` — numpy uint32 key words (as `jax.random` keys are
     stored) -> the port's int64 key tensors;
   * `qc_tables_from_reference` — the reference's `QCStructure` and
-    block-row layer groups -> the QC decoder's shift and group tables;
+    block-row layer groups -> the QC decoder's shift and group tables
+    (`QCTables.col_slots` is their column view: per variable block, the
+    slots that meet it);
   * `seq_qc_tables_from_reference` — the reference's `QCStructure` -> the
     serial (row-sequential) QC decoder's tables: the shift tables plus, per
     variable block, the block-rows that meet it;
@@ -86,6 +88,17 @@ class QCTables:
     @property
     def max_deg(self) -> int:
         return int(np.diff(self.row_ptr).max(initial=0))
+
+    def col_slots(self):
+        """The column view of the slots: (col_ptr (n_b + 1,), col_k (S,))
+        int32. Variable block j is met by the slots col_k[col_ptr[j] ..
+        col_ptr[j+1]-1] in ascending slot order (the reference's
+        `col_slots[j]`, with the shift slot_s[k] of each): variable
+        j * L + v sits in check row r = (v - slot_s[k]) % L of slot k."""
+        order = np.argsort(self.slot_j, kind="stable")
+        counts = np.bincount(self.slot_j, minlength=self.n_b)
+        col_ptr = np.concatenate([[0], np.cumsum(counts)])
+        return col_ptr.astype(np.int32), order.astype(np.int32)
 
     def gather_index(self, i: int) -> np.ndarray:
         """(deg_i, L) flat variable index read by block-row i, slot by slot."""

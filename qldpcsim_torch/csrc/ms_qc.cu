@@ -4,7 +4,8 @@
 // Replaces the TPU kernel qldpcsim_tpu/ops/ms_qc_pallas.py::_make_kernel
 // (kinds "MS" and "BP", built by make_qc_decoder): the whole iteration loop
 // of one decode in one launch, schedules F (one snapshot pass over all
-// block-rows) and block-row-grouped L, one syndrome check per iteration,
+// block-rows) and block-row-grouped L, one syndrome check per iteration or
+// (check_every "layer", more than one group) one after every layer group,
 // converged shots frozen, posterior out. It computes what that kernel
 // computes, in the same float32 order of operations (see ops/ms_qc_cuda.py);
 // built with -fmad=false so that `mag - 2 * (neg * mag)` and `post + delta`
@@ -40,6 +41,15 @@
 // and Z sides in one launch; no tensor cores (wgmma) either way, since this
 // is compare-and-select work.
 //
+// The per-layer check keeps, per shot, the mismatch bits mis = H e XOR syn
+// as m bits packed in 32-bit words (device memory, shot-minor) and their
+// count in a register: mis starts as the syndrome (the all-positive prior
+// gives e = 0), every posterior write whose sign changes toggles the bits of
+// that variable's check rows through the column view of the slots, and after
+// each layer group the thread latches and leaves when the count is 0. That
+// is the reference's freeze mask re-read per group: a frozen lane's later
+// updates are all zero.
+//
 // Kind BP is bound by its arithmetic where MS is bound by latency: per edge
 // and iteration it evaluates two transcendentals (tanhf, logf: each a few
 // dozen instructions of the math library's polynomial) and two IEEE
@@ -64,7 +74,9 @@ __device__ __forceinline__ float sign_floor(float x, float floor_abs) {
   return (x < 0.0f ? -1.0f : 1.0f) * fmaxf(fabsf(x), floor_abs);
 }
 
-template <int KIND, int MAXD>
+// TRACK: the check after every layer group (a template parameter, so that
+// the kernel with one check per iteration carries none of its code).
+template <int KIND, int MAXD, bool TRACK>
 __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
                              float beta, float clamp, int max_iter, int L,
                              int m_b, int n_b, int n_groups, int n_slots,
@@ -73,8 +85,13 @@ __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
                              const int* __restrict__ g_slot_s,
                              const int* __restrict__ g_group_ptr,
                              const int* __restrict__ g_group_snap,
+                             const int* __restrict__ g_col_ptr,
+                             const int* __restrict__ g_col_i,
+                             const int* __restrict__ g_col_s,
                              float* __restrict__ c2v, float* __restrict__ post,
-                             float* __restrict__ snap, int* __restrict__ n_iter,
+                             float* __restrict__ snap,
+                             uint32_t* __restrict__ mis,
+                             int* __restrict__ n_iter,
                              uint8_t* __restrict__ conv) {
   extern __shared__ int tab[];
   int* row_ptr = tab;                        // m_b + 1
@@ -82,6 +99,10 @@ __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
   int* slot_s = slot_j + n_slots;            // n_slots
   int* group_ptr = slot_s + n_slots;         // n_groups + 1
   int* group_snap = group_ptr + (n_groups + 1);  // n_groups
+  // column view, loaded only when the mismatch bits are tracked
+  int* col_ptr = group_snap + n_groups;      // n_b + 1
+  int* col_i = col_ptr + (n_b + 1);          // n_slots
+  int* col_s = col_i + n_slots;              // n_slots
   for (int t = threadIdx.x; t <= m_b; t += blockDim.x) row_ptr[t] = g_row_ptr[t];
   for (int t = threadIdx.x; t < n_slots; t += blockDim.x) {
     slot_j[t] = g_slot_j[t];
@@ -91,6 +112,14 @@ __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
     group_ptr[t] = g_group_ptr[t];
   for (int t = threadIdx.x; t < n_groups; t += blockDim.x)
     group_snap[t] = g_group_snap[t];
+  if constexpr (TRACK) {
+    for (int t = threadIdx.x; t <= n_b; t += blockDim.x)
+      col_ptr[t] = g_col_ptr[t];
+    for (int t = threadIdx.x; t < n_slots; t += blockDim.x) {
+      col_i[t] = g_col_i[t];
+      col_s[t] = g_col_s[t];
+    }
+  }
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -102,6 +131,17 @@ __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
 
   int it_lat = max_iter;
   bool done = false;
+  int n_bad = 0;  // set bits of this shot's mis words
+  if constexpr (TRACK) {
+    const int m = m_b * L;
+    for (int w = 0; w * 32 < m; ++w) {
+      uint32_t word = 0;
+      for (int q = 0; q < 32 && w * 32 + q < m; ++q)
+        if (syn[(size_t)(w * 32 + q) * sB + b] > 0.5f) word |= 1u << q;
+      mis[w * sB + b] = word;
+      n_bad += __popc(word);
+    }
+  }
   for (int it = 0; it < max_iter && !done; ++it) {
     for (int g = 0; g < n_groups; ++g) {
       const float* src = post;
@@ -164,36 +204,85 @@ __global__ void ms_qc_kernel(const float* __restrict__ syn, int B, float lch,
               }
               const float delta = nv - rowv[d];
               c2v[(size_t)((k0 + d) * L + r) * sB + b] = nv;
-              post[vi[d] * sB + b] = post[vi[d] * sB + b] + delta;
+              if constexpr (TRACK) {
+                const float pold = post[vi[d] * sB + b];
+                const float pnew = pold + delta;
+                post[vi[d] * sB + b] = pnew;
+                if ((pold < 0.0f) != (pnew < 0.0f)) {
+                  // the variable's sign flipped: toggle its check rows
+                  const int j = slot_j[k0 + d];
+                  const int vr = vi[d] - j * L;
+                  for (int c = col_ptr[j]; c < col_ptr[j + 1]; ++c) {
+                    int rr = vr - col_s[c];
+                    if (rr < 0) rr += L;
+                    const int row = col_i[c] * L + rr;
+                    const uint32_t bit = 1u << (row & 31);
+                    const uint32_t old = mis[(row >> 5) * sB + b];
+                    n_bad += (old & bit) ? -1 : 1;
+                    mis[(row >> 5) * sB + b] = old ^ bit;
+                  }
+                }
+              } else {
+                post[vi[d] * sB + b] = post[vi[d] * sB + b] + delta;
+              }
             }
           }
         }
       }
-    }
-    // one syndrome check per iteration: H (posterior < 0) == syn (mod 2)
-    bool ok = true;
-    for (int i = 0; i < m_b && ok; ++i) {
-      const int k0 = row_ptr[i], k1 = row_ptr[i + 1];
-      for (int r = 0; r < L; ++r) {
-        int parity = 0;
-        for (int k = k0; k < k1; ++k) {
-          int rs = r + slot_s[k];
-          if (rs >= L) rs -= L;
-          parity ^= post[(slot_j[k] * L + rs) * sB + b] < 0.0f;
-        }
-        if (parity != (syn[(size_t)(i * L + r) * sB + b] > 0.5f)) {
-          ok = false;
+      if constexpr (TRACK) {
+        if (n_bad == 0) {  // the check after every layer group
+          it_lat = it + 1;
+          done = true;
           break;
         }
       }
     }
-    if (ok) {
-      it_lat = it + 1;
-      done = true;
+    if constexpr (!TRACK) {
+      // one syndrome check per iteration: H (posterior < 0) == syn (mod 2)
+      bool ok = true;
+      for (int i = 0; i < m_b && ok; ++i) {
+        const int k0 = row_ptr[i], k1 = row_ptr[i + 1];
+        for (int r = 0; r < L; ++r) {
+          int parity = 0;
+          for (int k = k0; k < k1; ++k) {
+            int rs = r + slot_s[k];
+            if (rs >= L) rs -= L;
+            parity ^= post[(slot_j[k] * L + rs) * sB + b] < 0.0f;
+          }
+          if (parity != (syn[(size_t)(i * L + r) * sB + b] > 0.5f)) {
+            ok = false;
+            break;
+          }
+        }
+      }
+      if (ok) {
+        it_lat = it + 1;
+        done = true;
+      }
     }
   }
   n_iter[b] = it_lat;
   conv[b] = done ? 1 : 0;
+}
+
+template <int KIND, int MAXD, bool TRACK>
+cudaError_t launch_kernel(const float* syn, int B, float lch, float beta,
+                   float clamp, int max_iter, int L, int m_b, int n_b,
+                   int n_groups, int n_slots, const int* row_ptr,
+                   const int* slot_j, const int* slot_s, const int* group_ptr,
+                   const int* group_snap, const int* col_ptr, const int* col_i,
+                   const int* col_s, float* c2v, float* post, float* snap,
+                   uint32_t* mis, int* n_iter, uint8_t* conv,
+                   cudaStream_t stream) {
+  const int threads = 32;  // one warp per block: spreads B shots over SMs
+  const int blocks = (B + threads - 1) / threads;
+  const size_t shmem = sizeof(int) * (size_t)(m_b + 1 + 4 * n_slots +
+                                              2 * n_groups + 1 + n_b + 1);
+  ms_qc_kernel<KIND, MAXD, TRACK><<<blocks, threads, shmem, stream>>>(
+      syn, B, lch, beta, clamp, max_iter, L, m_b, n_b, n_groups, n_slots,
+      row_ptr, slot_j, slot_s, group_ptr, group_snap, col_ptr, col_i, col_s,
+      c2v, post, snap, mis, n_iter, conv);
+  return cudaGetLastError();
 }
 
 template <int KIND, int MAXD>
@@ -201,17 +290,15 @@ cudaError_t launch(const float* syn, int B, float lch, float beta,
                    float clamp, int max_iter, int L, int m_b, int n_b,
                    int n_groups, int n_slots, const int* row_ptr,
                    const int* slot_j, const int* slot_s, const int* group_ptr,
-                   const int* group_snap, float* c2v, float* post, float* snap,
-                   int* n_iter, uint8_t* conv, cudaStream_t stream) {
-  const int threads = 32;  // one warp per block: spreads B shots over SMs
-  const int blocks = (B + threads - 1) / threads;
-  const size_t shmem = sizeof(int) * (size_t)(m_b + 1 + 2 * n_slots +
-                                              2 * n_groups + 1);
-  ms_qc_kernel<KIND, MAXD><<<blocks, threads, shmem, stream>>>(
-      syn, B, lch, beta, clamp, max_iter, L, m_b, n_b, n_groups, n_slots,
-      row_ptr, slot_j, slot_s, group_ptr, group_snap, c2v, post, snap, n_iter,
-      conv);
-  return cudaGetLastError();
+                   const int* group_snap, const int* col_ptr, const int* col_i,
+                   const int* col_s, float* c2v, float* post, float* snap,
+                   uint32_t* mis, int* n_iter, uint8_t* conv,
+                   cudaStream_t stream) {
+  auto fn = mis != nullptr ? launch_kernel<KIND, MAXD, true>
+                           : launch_kernel<KIND, MAXD, false>;
+  return fn(syn, B, lch, beta, clamp, max_iter, L, m_b, n_b, n_groups,
+            n_slots, row_ptr, slot_j, slot_s, group_ptr, group_snap, col_ptr,
+            col_i, col_s, c2v, post, snap, mis, n_iter, conv, stream);
 }
 
 }  // namespace
@@ -227,23 +314,29 @@ const char* ms_qc_error_string(int rc) {
 // convert.QCTables (int32, on the device), n_slots = row_ptr[m_b], max_deg
 // the largest block-row degree; c2v: (n_slots * L, B) scratch; post: (n, B)
 // posterior out; snap: (n, B) scratch, or null when no group needs a
-// snapshot; n_iter: (B,) int32 out; conv: (B,) uint8 out. Launches on
-// `stream` and returns cudaGetLastError() after the launch.
+// snapshot; mis: (ceil(m / 32), B) uint32 scratch for the check after every
+// layer group, with col_ptr (n_b + 1,), col_i, col_s (n_slots,) the column
+// view of the slots (variable block j is met by block-rows col_i[c] through
+// shifts col_s[c], c = col_ptr[j] .. col_ptr[j+1]-1), or all four null for
+// one check per iteration; n_iter: (B,) int32 out; conv: (B,) uint8 out.
+// Launches on `stream` and returns cudaGetLastError() after the launch.
 int ms_qc_decode(const void* syn, int B, int kind, float lch, float beta,
                  float clamp, int max_iter, int L, int m_b, int n_b,
                  int n_groups, int max_deg, int n_slots,
                  const void* row_ptr, const void* slot_j,
                  const void* slot_s, const void* group_ptr,
-                 const void* group_snap, void* c2v, void* post, void* snap,
-                 void* n_iter, void* conv, void* stream) {
+                 const void* group_snap, const void* col_ptr,
+                 const void* col_i, const void* col_s, void* c2v, void* post,
+                 void* snap, void* mis, void* n_iter, void* conv,
+                 void* stream) {
   if (B <= 0) return 0;
 #define QLDPC_MSQC_ARGS                                                      \
   (const float*)syn, B, lch, beta, clamp, max_iter, L, m_b, n_b, n_groups,   \
       n_slots, (const int*)row_ptr, (const int*)slot_j,                      \
       (const int*)slot_s, (const int*)group_ptr, (const int*)group_snap,     \
-      (float*)c2v,                                                           \
-      (float*)post, (float*)snap, (int*)n_iter, (uint8_t*)conv,              \
-      (cudaStream_t)stream
+      (const int*)col_ptr, (const int*)col_i, (const int*)col_s,             \
+      (float*)c2v, (float*)post, (float*)snap, (uint32_t*)mis,               \
+      (int*)n_iter, (uint8_t*)conv, (cudaStream_t)stream
   if (kind == kMS) {
     if (max_deg <= 8) return (int)launch<kMS, 8>(QLDPC_MSQC_ARGS);
     if (max_deg <= 16) return (int)launch<kMS, 16>(QLDPC_MSQC_ARGS);

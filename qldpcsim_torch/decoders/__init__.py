@@ -39,6 +39,7 @@ __all__ = [
     "DecoderConfig",
     "DecodeResult",
     "make_decoder",
+    "make_osd",
 ]
 
 # Fewest edge slots (m * dmax) at which `impl="auto"` takes kernel E over
@@ -182,3 +183,12 @@ def make_decoder(graph, cfg, layers=None, device="cpu"):
         return make_tworound(factory, graph, cfg, eff_layers, r1,
                              cfg.compact_cap_frac)
     return make_cascade(factory, graph, cfg, eff_layers)
+
+
+def make_osd(H, order: int, device="cpu"):
+    """osd(e_hat, syndromes, posterior) -> e_hat' for OSD-`order` over H
+    (the reference's `make_osd`): the `OSD` module of `decoders/osd.py` on
+    `device`."""
+    from qldpcsim_torch.decoders.osd import OSD
+
+    return OSD(H, order, device=device)

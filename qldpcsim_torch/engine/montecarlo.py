@@ -6,7 +6,13 @@ Per p-point: per-tile threefry keys -> depolarizing channel and syndromes ->
 X and Z decodes (`decoders.make_decoder`: MS or BP over any H, in the
 straggler cascade when the budget is deep; BF; NG) -> OSD over each side's
 decoder-failed shots, when enabled (MS and BP) -> classification counters,
-summed over chunks. The key chain is the reference's (seed ->
+summed over chunks. Within a key group the chunks hand their decoder-failed
+shots to one group-level OSD pass (`_chunk_body_defer`,
+`_osd_group_finish`), which fills OSD's windows where a chunk alone leaves
+them nearly empty; OSD acts shot by shot, so the counters are those of the
+in-chunk path. With `validate_encoding` every chunk runs the full encode ->
+corrupt -> extract pipeline on random codeword frames (`channel/encoder.py`),
+which leaves every counter as it is. The key chain is the reference's (seed ->
 p-index -> global tile, 64-shot tiles), so a run's counters equal the
 reference's on its threefry path, and do not depend on the device or the
 batch size.
@@ -33,7 +39,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from qldpcsim_torch.channel.depolarizing import sample_shot_tiles
+from qldpcsim_torch.channel.depolarizing import (
+    sample_shot_tiles,
+    syndromes_of,
+)
+from qldpcsim_torch.channel.encoder import CSSEncoder
 from qldpcsim_torch.decoders import (
     DecoderConfig,
     TannerGraph,
@@ -64,6 +74,18 @@ _KEY_GROUP_CHUNKS = 128
 
 # Shots per OSD call (the reference's window cap, min(batch, 256)).
 _OSD_WINDOW = 256
+
+# Decoder-failed shots waiting for the group-level OSD pass: the pass runs
+# whenever this many records are pending, and at the end of the key group. A
+# record holds both errors and both estimates (1 byte per qubit each), both
+# syndromes and both posteriors (float32) and two flags: 12 n + 4 (mx + mz)
+# + 2 bytes, 8,450 on lp118_0 (n 544, 240 checks per side), so at most
+# ~69 MB wait there (~135 MB on the Tanner code), however many of a key
+# group's 524,288 shots fail.
+_OSD_PENDING_MAX = 8192
+
+# Frame key of a chunk under validate_encoding: fold_in(tile_keys[0], 'ENC').
+_ENC_FOLD = 0x454E43
 
 
 @dataclasses.dataclass
@@ -132,14 +154,11 @@ class ShotPipeline(nn.Module):
     across p: the X and Z decoders (MS, BP, BF or NG), OSD over each side's
     decoder-failed shots when `cfg.osd_order >= 0` (MS and BP only, as the
     reference: BF and NG give no posterior), and the classifier.
-    `osd_shots` counts the shots each side sent to OSD."""
+    `osd_shots` counts the shots each side sent to OSD, `osd_syncs` the
+    host syncs of the OSD path (one per `torch.nonzero`)."""
 
     def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig):
         super().__init__()
-        if cfg.validate_encoding:
-            raise NotImplementedError(
-                "validate_encoding comes with the user-surface slice "
-                "(ROADMAP queue 1, 'User surfaces')")
         self.device = _resolve_device(cfg.device)
         self.Hx = (np.asarray(Hx) % 2).astype(np.int8)
         self.Hz = (np.asarray(Hz) % 2).astype(np.int8)
@@ -169,6 +188,9 @@ class ShotPipeline(nn.Module):
             self.osd_x = OSD(self.Hz, cfg.osd_order, device=self.device)
             self.osd_z = OSD(self.Hx, cfg.osd_order, device=self.device)
         self.osd_shots = {"x": 0, "z": 0}
+        self.osd_syncs = 0
+        self.encoder = (CSSEncoder.build(self.Hx, self.Hz)
+                        if cfg.validate_encoding else None)
         self.classifier = ClassifierStatic.build(self.Hx, self.Hz,
                                                  device=self.device)
         for name, H in (("Hx_T", self.Hx), ("Hz_T", self.Hz)):
@@ -181,28 +203,47 @@ class ShotPipeline(nn.Module):
         self.tiles_per_chunk = self.batch // self.tile
 
     def _sample_chunk(self, tile_keys: torch.Tensor, p):
-        return sample_shot_tiles(tile_keys, p, self.n, self.tile, self.Hx_T,
-                                 self.Hz_T)
+        """Channel sampling for one chunk. With `cfg.validate_encoding` the
+        full pipeline runs: encode a random codeword frame, corrupt it with
+        the channel's error, extract the syndromes from the corrupted
+        codeword, and recover the effective error as word XOR frame. Both
+        check matrices annihilate a frame, so syndromes, effective errors
+        and every counter equal the frame-free channel's."""
+        err_x, err_z, sy_z, sy_x = sample_shot_tiles(
+            tile_keys, p, self.n, self.tile, self.Hx_T, self.Hz_T)
+        if self.encoder is None:
+            return err_x, err_z, sy_z, sy_x
+        fx, fz = self.encoder.encode(fold_in(tile_keys[0], _ENC_FOLD),
+                                     err_x.shape[0])
+        fx, fz = fx.bool(), fz.bool()
+        word_x, word_z = err_x.bool() ^ fx, err_z.bool() ^ fz
+        sy_z, sy_x = syndromes_of(word_x, word_z, self.Hx_T, self.Hz_T)
+        return ((word_x ^ fx).to(err_x.dtype), (word_z ^ fz).to(err_z.dtype),
+                sy_z, sy_x)
 
     def _chunk_body(self, tile_keys: torch.Tensor, p, n_valid: int
                     ) -> Dict[str, torch.Tensor]:
         """One chunk: sample, decode both sides [+ OSD], classify -> 0-d
         counters. tile_keys: (tiles_per_chunk, 2) int64, one key per global
-        tile."""
+        tile. Self-contained (OSD finishes its failures in the chunk); the
+        key groups of `_multi_chunk_body` use `_chunk_body_defer`."""
         err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
         valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
         ex_hat, ez_hat, it_x, it_z = self._decode(sy_z, sy_x, p, valid)
         return self._count(err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, it_x,
                            it_z, valid)
 
-    def _decode(self, sy_z, sy_x, p, valid):
-        """Both sides' decodes, then OSD over each side's decoder-failed
-        valid shots -> (ex_hat, ez_hat, n_iter_x, n_iter_z)."""
+    def _decode_sides(self, sy_z, sy_x, p):
+        """The X and Z decodes of a chunk -> (DecodeResult, DecodeResult)."""
         # the reference's prior p/3 (float32, as the reference's jitted
         # `p / 3.0` on a float32 p)
         prior = np.float32(p) / np.float32(3.0)
-        res_x = self.dec_x(sy_z, prior)
-        res_z = self.dec_z(sy_x, prior)
+        return self.dec_x(sy_z, prior), self.dec_z(sy_x, prior)
+
+    def _decode(self, sy_z, sy_x, p, valid):
+        """Both sides' decodes, then OSD over each side's decoder-failed
+        valid shots -> (ex_hat, ez_hat, n_iter_x, n_iter_z)."""
+        res_x, res_z = self._decode_sides(sy_z, sy_x, p)
         ex_hat, ez_hat = res_x.e_hat, res_z.e_hat
         if self.use_osd:
             ex_hat = self._apply_osd(self.osd_x, ex_hat, res_x.posterior,
@@ -216,9 +257,10 @@ class ShotPipeline(nn.Module):
         256 shots taken in lane-ascending order (the reference's in-chunk
         `_apply_osd`). OSD acts shot by shot, so the windows do not change
         the result, and the counters equal the reference's in-chunk and
-        deferred paths alike. `torch.nonzero` costs one host sync per side
-        per chunk: the window count."""
+        deferred paths alike. `torch.nonzero` costs one host sync per call:
+        the window count."""
         order = torch.nonzero(failed).flatten()
+        self.osd_syncs += 1
         n_failed = int(order.numel())
         self.osd_shots["x" if osd is self.osd_x else "z"] += n_failed
         if n_failed == 0:
@@ -230,25 +272,99 @@ class ShotPipeline(nn.Module):
             out[idx] = osd(e_hat[idx], syn[idx], post[idx])
         return out
 
+    def _chunk_body_defer(self, tile_keys: torch.Tensor, p, n_valid: int):
+        """Chunk body of a key group with OSD: sample, decode, then
+        `_defer`."""
+        err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
+        valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
+        res_x, res_z = self._decode_sides(sy_z, sy_x, p)
+        return self._defer(err_x, err_z, sy_z, sy_x, res_x, res_z, valid)
+
+    def _defer(self, err_x, err_z, sy_z, sy_x, res_x, res_z, valid):
+        """Count the shots that need no OSD (both sides converged) and the
+        iterations of all valid shots, and return the counters with the
+        records of the decoder-failed shots for the group-level pass (None
+        when there are none). The `torch.nonzero` that compacts them is the
+        chunk's one host sync for OSD."""
+        failed = ~(res_x.converged & res_z.converged) & valid
+        counts = classify_batch(self.classifier, err_x, err_z, res_x.e_hat,
+                                res_z.e_hat, sy_z, sy_x,
+                                valid=valid & ~failed)
+        # OSD never touches n_iter: counted here for all valid shots
+        self._count_iterations(counts, res_x.n_iter, res_z.n_iter, valid)
+        idx = torch.nonzero(failed).flatten()
+        self.osd_syncs += 1
+        if idx.numel() == 0:
+            return counts, None
+        return counts, {
+            "err_x": err_x[idx], "err_z": err_z[idx],
+            "sy_z": sy_z[idx], "sy_x": sy_x[idx],
+            "ex": res_x.e_hat[idx], "ez": res_z.e_hat[idx],
+            "px": res_x.posterior[idx], "pz": res_z.posterior[idx],
+            "cx": res_x.converged[idx], "cz": res_z.converged[idx]}
+
+    def _osd_group_finish(self, pending: List[Dict[str, torch.Tensor]]
+                          ) -> Dict[str, torch.Tensor]:
+        """One OSD pass over the pending records of several chunks (the
+        reference's `_osd_group_finish`): each side's unconverged records go
+        through OSD in full windows, then one classification. Returns the
+        event counters of these shots; their iterations were counted in
+        their chunks."""
+        rec = {name: torch.cat([d[name] for d in pending]) for name in
+               pending[0]}
+        ex = self._apply_osd(self.osd_x, rec["ex"], rec["px"], rec["sy_z"],
+                             ~rec["cx"])
+        ez = self._apply_osd(self.osd_z, rec["ez"], rec["pz"], rec["sy_x"],
+                             ~rec["cz"])
+        counts = classify_batch(self.classifier, rec["err_x"], rec["err_z"],
+                                ex, ez, rec["sy_z"], rec["sy_x"],
+                                valid=torch.ones_like(rec["cx"]))
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        counts["nIterAccX"] = counts["nIterAccZ"] = zero
+        return counts
+
     def _multi_chunk_body(self, keys: torch.Tensor, p, n_valids
                           ) -> Dict[str, torch.Tensor]:
         """Chunks keys[0], keys[1], ... ((g, tiles, 2)) with n_valids[i]
-        valid shots each; counters summed on the device."""
-        total = None
-        for k, nv in zip(keys, n_valids):
-            counts = self._chunk_body(k, p, int(nv))
-            total = counts if total is None else {
+        valid shots each; counters summed on the device. With OSD on, the
+        chunks defer their decoder-failed shots to a group-level OSD pass,
+        which runs when `_OSD_PENDING_MAX` records wait and at the end."""
+
+        def add(total, counts):
+            return counts if total is None else {
                 name: total[name] + counts[name] for name in total}
+
+        total = None
+        if not self.use_osd:
+            for k, nv in zip(keys, n_valids):
+                total = add(total, self._chunk_body(k, p, int(nv)))
+            return total
+        pending, n_pending = [], 0
+        for k, nv in zip(keys, n_valids):
+            counts, defer = self._chunk_body_defer(k, p, int(nv))
+            total = add(total, counts)
+            if defer is not None:
+                pending.append(defer)
+                n_pending += defer["cx"].shape[0]
+            if n_pending >= _OSD_PENDING_MAX:
+                total = add(total, self._osd_group_finish(pending))
+                pending, n_pending = [], 0
+        if pending:
+            total = add(total, self._osd_group_finish(pending))
         return total
 
     def _count(self, err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, it_x, it_z,
                valid) -> Dict[str, torch.Tensor]:
         counts = classify_batch(self.classifier, err_x, err_z, ex_hat, ez_hat,
                                 sy_z, sy_x, valid=valid)
+        self._count_iterations(counts, it_x, it_z, valid)
+        return counts
+
+    @staticmethod
+    def _count_iterations(counts, it_x, it_z, valid) -> None:
         zero = torch.zeros((), dtype=it_x.dtype, device=it_x.device)
         counts["nIterAccX"] = torch.where(valid, it_x, zero).sum()
         counts["nIterAccZ"] = torch.where(valid, it_z, zero).sum()
-        return counts
 
 
 def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
@@ -257,7 +373,8 @@ def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
     stream and its chunk layout. The code itself (Hx/Hz bytes), the fully
     resolved decoder config, the OSD order, layer_compat, the chunk layout
     (batch and RNG tile size: `chunks_done` only means something under the
-    layout that wrote it), shots, seed, p and the p-index. A resume after a
+    layout that wrote it), shots, seed, validate_encoding, p and the
+    p-index. A resume after a
     change to any of these misses the old checkpoint instead of reusing
     stale counts. The device is not part of it: counters do not depend on
     it for MS, and for BP differ only as two runs of a Monte-Carlo estimate
@@ -271,6 +388,7 @@ def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
         "layer_compat": bool(cfg.layer_compat),
         "batch": pipe.batch, "tile": pipe.tile,
         "shots": cfg.shots, "seed": int(seed),
+        "validate_encoding": bool(cfg.validate_encoding),
         "p": f"{p:.17e}", "p_index": int(p_index),
     }
     blob = json.dumps(payload, sort_keys=True, default=str)

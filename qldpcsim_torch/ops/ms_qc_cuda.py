@@ -20,21 +20,34 @@ each layer group (v = roll(snapshot[j], s) - c2v, slot by slot):
   both:
     post[j] += roll back(c2v' - c2v)                 (frozen lanes: += 0)
 
-with ss = 1 - 2 syndrome, and one syndrome check per iteration. Lanes never
-interact, so the kernel gives each shot its own thread and loop and exits it
-at convergence, which is exactly the Pallas kernel's freeze of converged
+with ss = 1 - 2 syndrome, and one syndrome check per iteration, or, with
+`qc_check_every="layer"` and more than one layer group, one after every
+group: the mismatch bits mis = H e XOR syn start as the syndrome (the prior
+is positive, so e = 0), every posterior write flips the bits of the check
+rows of the variables whose sign it changed, a shot latches it + 1 when its
+bits are all zero after a group, and the freeze mask is re-read per group.
+Under F there is one group, and "layer" is "iter". Lanes never interact,
+so the kernel gives each shot its own thread and loop and exits it at
+convergence, which is exactly the Pallas kernel's freeze of converged
 lanes. The plain version runs all lanes together until every lane has
 converged or max_iter is reached, masking the updates of converged lanes as
 the Pallas kernel does; its rolls are index arithmetic (r + s) mod L.
 
 `ms_qc` runs the kernel for CUDA tensors and the plain version for CPU
 tensors. `LAUNCHES[kind]` counts kernel launches.
+
+Under F with one check per iteration and a uniform block-row degree,
+`make_qc_decoder` can take the slot-stacked kernel F instead
+(`ops/flood_qc_cuda.py`): opt-in, as in the reference, by
+`QLDPC_QC_STACKED=1` in the environment when the decoder is built, or by
+the `stacked` keyword.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -47,7 +60,7 @@ from qldpcsim_torch.decoders.common import (
     DecoderConfig,
     LayerSchedule,
 )
-from qldpcsim_torch.ops import _build
+from qldpcsim_torch.ops import _build, flood_qc_cuda
 from qldpcsim_torch.ops.qc import QCStructure, block_groups_of_layers
 from qldpcsim_torch.utils.f32math import xla_cpu_logf
 
@@ -121,11 +134,17 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     ss = 1.0 - 2.0 * syn_T                               # (m, B)
     coef_base = dec.beta * ss                            # MS: beta * ss
     gidx = [getattr(dec, f"gidx{i}") for i in range(tabs.m_b)]
+    track = dec.track_mis
+    if track:
+        mis = syn_T.clone()                              # (m, B) 0/1
+        hcol = [getattr(dec, f"hcol{i}") for i in range(tabs.m_b)]
     for it in range(dec.max_iter):
         if bool(done.all()):
             break
         active = ~done
         for g in range(len(tabs.group_snap)):
+            if track:
+                active = ~done
             src = post.clone() if tabs.group_snap[g] else post
             for i in range(int(tabs.group_ptr[g]), int(tabs.group_ptr[g + 1])):
                 k0, k1 = int(tabs.row_ptr[i]), int(tabs.row_ptr[i + 1])
@@ -142,7 +161,18 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
                 c2v[k0:k1] = new_row
                 # each variable of the block-row is met by exactly one slot
                 # and row, so this gather-add-scatter adds every delta once
-                post[idx] = post[idx] + delta.reshape(-1, B)
+                old = post[idx]
+                upd = old + delta.reshape(-1, B)
+                post[idx] = upd
+                if track:
+                    flip = ((old < 0.0) != (upd < 0.0)).to(f32)
+                    mis = torch.remainder(mis + hcol[i] @ flip, 2.0)
+            if track:
+                ok = (mis == 0.0).all(dim=0)
+                n_iter = torch.where(ok & ~done, it + 1, n_iter)
+                done = done | ok
+        if track:
+            continue
         est = torch.remainder(dec.H @ (post < 0.0).to(f32), 2.0)
         ok = (est == syn_T).all(dim=0)
         n_iter = torch.where(ok & ~done, it + 1, n_iter)
@@ -170,11 +200,16 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 11)
+                   + [ctypes.c_void_p] * 15)
     post = torch.empty((tabs.n, B), dtype=torch.float32, device=dev)
     c2v = torch.empty((tabs.n_slots * tabs.L, B), dtype=torch.float32,
                       device=dev)
     snap = (torch.empty_like(post) if tabs.group_snap.any() else None)
+    mis, cols = None, [None] * 3
+    if dec.track_mis:
+        mis = torch.empty((-(-tabs.m // 32), B), dtype=torch.int32, device=dev)
+        cols = [dec.col_ptr.data_ptr(), dec.col_i.data_ptr(),
+                dec.col_s.data_ptr()]
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -184,8 +219,9 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
             tabs.n_slots,
             dec.row_ptr.data_ptr(), dec.slot_j.data_ptr(),
             dec.slot_s.data_ptr(), dec.group_ptr.data_ptr(),
-            dec.group_snap.data_ptr(), c2v.data_ptr(), post.data_ptr(),
+            dec.group_snap.data_ptr(), *cols, c2v.data_ptr(), post.data_ptr(),
             None if snap is None else snap.data_ptr(),
+            None if mis is None else mis.data_ptr(),
             n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "ms_qc", rc)
     LAUNCHES[dec.kind] += 1
@@ -226,64 +262,99 @@ class QCDecoder(nn.Module):
 
     Static tables live as int32 buffers on `device`; syndromes must lie on
     the same device. The schedule is 'F' (one snapshot pass over all
-    block-rows per iteration) or block-row-aligned 'L'.
+    block-rows per iteration) or block-row-aligned 'L'. `stacked` asks for
+    the slot-stacked flooding kernel F (None: `QLDPC_QC_STACKED=1` in the
+    environment asks); it is taken, as in the reference, only under F with
+    one check per iteration and a uniform block-row degree, else kernel B
+    decodes (`self.stacked` says which).
     """
 
     def __init__(self, st: QCStructure, cfg: DecoderConfig,
                  layers: Optional[LayerSchedule] = None,
-                 device="cpu"):
+                 device="cpu", stacked: Optional[bool] = None):
         super().__init__()
         self.kind = cfg.dec_type.upper()
         if self.kind not in KINDS:
             raise ValueError(f"the QC decoder runs kinds {KINDS}, got "
                              f"{cfg.dec_type!r}")
-        if cfg.qc_check_every != "iter":
-            raise NotImplementedError(
-                "qc_check_every='layer' is not ported yet (ROADMAP queue 1)")
+        if cfg.qc_check_every not in ("iter", "layer"):
+            raise ValueError("qc_check_every must be 'iter' or 'layer', got "
+                             f"{cfg.qc_check_every!r}")
         self.tabs: QCTables = qc_tables_from_reference(
             st, layer_groups_for(st, cfg, layers))
+        t = self.tabs
+        # the check after every layer group; one group is one check per
+        # iteration either way
+        self.track_mis = (cfg.qc_check_every == "layer"
+                          and len(t.group_snap) > 1)
+        if stacked is None:
+            stacked = os.environ.get("QLDPC_QC_STACKED") == "1"
+        self.stacked = bool(stacked and cfg.schedule.upper() == "F"
+                            and cfg.qc_check_every == "iter"
+                            and flood_qc_cuda.uniform_degree(st) is not None)
         self.beta = float(np.float32(cfg.beta))
         # BP clamp: 1 - eps in float64, as Python forms it in the reference,
         # then rounded to float32
         self.clamp = float(np.float32(1.0 - float(cfg.eps)))
         self.max_iter = int(cfg.max_iter)
         i32 = torch.int32
-        t = self.tabs
+
+        def buf(name, array, dtype=i32):
+            self.register_buffer(name, torch.as_tensor(
+                np.asarray(array), dtype=dtype, device=device))
+
         for name in ("row_ptr", "slot_j", "slot_s", "group_ptr",
                      "group_snap"):
-            self.register_buffer(name, torch.as_tensor(
-                getattr(t, name), dtype=i32, device=device))
-        # plain version: gather index per block-row, and the lifted H for
-        # its per-iteration check
-        for i in range(t.m_b):
-            self.register_buffer(f"gidx{i}", torch.as_tensor(
-                t.gather_index(i).reshape(-1), dtype=torch.int64,
-                device=device))
+            buf(name, getattr(t, name))
+        # the lifted H, for the plain versions' per-iteration check
         H = np.zeros((t.m, t.n), np.float32)
         for i in range(t.m_b):
             gi = t.gather_index(i)
             for r in range(t.L):
                 H[i * t.L + r, gi[:, r]] = 1.0
-        self.register_buffer("H", torch.as_tensor(H, device=device))
+        buf("H", H, torch.float32)
+        if self.stacked:
+            # int32 column view (kernel); int64 indices and bool mask (plain)
+            for name, a in flood_qc_cuda.stacked_tables(t).items():
+                buf(f"flood_{name}", a, None)
+            return
+        # plain version: gather index per block-row
+        for i in range(t.m_b):
+            buf(f"gidx{i}", t.gather_index(i).reshape(-1), torch.int64)
+        if self.track_mis:
+            # the column view of the slots (kernel), and per block-row the
+            # columns of H at its variables (plain version)
+            col_ptr, col_k = t.col_slots()
+            slot_row = np.repeat(np.arange(t.m_b), np.diff(t.row_ptr))
+            buf("col_ptr", col_ptr)
+            buf("col_i", slot_row[col_k])
+            buf("col_s", t.slot_s[col_k])
+            for i in range(t.m_b):
+                buf(f"hcol{i}", H[:, t.gather_index(i).reshape(-1)],
+                    torch.float32)
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
-        syn_T = syndromes.to(torch.float32).T.contiguous()
-        post, n_iter, conv = ms_qc(self, syn_T, llr_prior(p))
-        post = post.T
+        if self.stacked:
+            post, n_iter, conv = flood_qc_cuda.flood_qc(
+                self, syndromes.to(torch.float32).contiguous(), llr_prior(p))
+        else:
+            syn_T = syndromes.to(torch.float32).T.contiguous()
+            post, n_iter, conv = ms_qc(self, syn_T, llr_prior(p))
+            post = post.T
         return DecodeResult(e_hat=(post < 0.0).to(torch.int8), n_iter=n_iter,
                             converged=conv, posterior=post)
 
 
 def make_qc_decoder(st: QCStructure, cfg: DecoderConfig,
-                    layers: Optional[LayerSchedule] = None, device="cpu"
-                    ) -> QCDecoder:
-    return QCDecoder(st, cfg, layers=layers, device=device)
+                    layers: Optional[LayerSchedule] = None, device="cpu",
+                    stacked: Optional[bool] = None) -> QCDecoder:
+    return QCDecoder(st, cfg, layers=layers, device=device, stacked=stacked)
 
 
 def make_bp_qc_decoder(st: QCStructure, cfg: DecoderConfig,
-                       layers: Optional[LayerSchedule] = None, device="cpu"
-                       ) -> QCDecoder:
+                       layers: Optional[LayerSchedule] = None, device="cpu",
+                       stacked: Optional[bool] = None) -> QCDecoder:
     """The BP kind of `make_qc_decoder`, whatever cfg.dec_type says (the
     reference's `make_bp_qc_decoder`)."""
     return QCDecoder(st, dataclasses.replace(cfg, dec_type="BP"),
-                     layers=layers, device=device)
+                     layers=layers, device=device, stacked=stacked)

@@ -9,7 +9,13 @@ Reproduces, bit for bit, jax 0.9.0's threefry PRNG with
                                (0, data));
   * `random_bits(key, shape)` == `jax.random.bits(key, shape, uint32)`: the
                                hash of the row-major counter (hi, lo) words,
-                               returned as bits1 ^ bits2.
+                               returned as bits1 ^ bits2;
+  * `split(key, num)`       == `jax.random.split`: key i is the hash of the
+                               counter (0, i), which is `fold_in(key, i)`;
+  * `uniform(key, shape)`   == `jax.random.uniform(key, shape)` (float32 in
+                               [0, 1)): the top 23 bits as the mantissa of a
+                               float in [1, 2), minus 1;
+  * `bernoulli(key, p, shape)` == `jax.random.bernoulli`: uniform < p.
 
 torch has little uint32 arithmetic, so 32-bit words are carried in int64
 tensors with values in [0, 2^32) and every add is masked. A key is a (..., 2)
@@ -85,3 +91,24 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     k1 = key[..., 1].reshape(*lead, 1)
     y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & MASK)
     return (y0 ^ y1).reshape(*lead, *shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)` for one (2,) key: a (num, 2) int64 tensor
+    of new keys."""
+    return fold_in(key.expand(num, 2),
+                   torch.arange(num, dtype=torch.int64, device=key.device))
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.uniform(key, shape)`: float32 in [0, 1)."""
+    mantissa = (random_bits(key, shape) >> 9) | 0x3F800000
+    return mantissa.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]
+              ) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` for a float p: a bool tensor,
+    True with probability p (p is rounded to float32, as in jax)."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)

@@ -21,6 +21,7 @@ from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
 from qldpcsim_torch.ops import (
     _build,
     channel_cuda,
+    flood_qc_cuda,
     general_h_cuda,
     gf2_elim_cuda,
     ms_qc_cuda,
@@ -45,11 +46,12 @@ def _syndromes(seed, H, n_shots, p, device):
     return torch.from_numpy(syn).to(device)
 
 
-def _decoder(H, sched, device, max_iter=50, kind="MS"):
+def _decoder(H, sched, device, max_iter=50, kind="MS", chk="iter",
+             stacked=False):
     return ms_qc_cuda.make_qc_decoder(
         detect_qc(H), DecoderConfig(dec_type=kind, max_iter=max_iter,
-                                    schedule=sched),
-        layers=build_layers(H, sched), device=device)
+                                    schedule=sched, qc_check_every=chk),
+        layers=build_layers(H, sched), device=device, stacked=stacked)
 
 
 def _seq_decoder(H, device, max_iter, kind="MS"):
@@ -141,6 +143,9 @@ def test_other_devices_raise():
         ms_qc_cuda.ms_qc(_decoder(H, "L", "cpu", max_iter=4),
                          torch.zeros(H.shape[0], 8, device="meta"), 1.0)
     with pytest.raises(ValueError):
+        flood_qc_cuda.flood_qc(_decoder(H, "F", "cpu", 4, stacked=True),
+                               torch.zeros(8, H.shape[0], device="meta"), 1.0)
+    with pytest.raises(ValueError):
         gf2_elim_cuda.eliminate(torch.zeros((2, 175, 3), dtype=torch.int32,
                                             device="meta"), 78, 3)
     with pytest.raises(ValueError):
@@ -209,6 +214,89 @@ def test_bp_qc_kernel_equals_plain(cuda_device, code, sched):
     assert kc.any() and not kc.all()
     assert torch.equal(ki, pi) and torch.equal(kc, pc)
     assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code,side,B,max_iter", [
+    ("lp118_0", "Hz", 4096, 4),    # config 5's shape, the cascade's head
+    ("lp118_0", "Hx", 300, 99),    # full depth
+    ("lp04_0", "Hz", 300, 30),     # d = 7: the odd branch of the tree
+    ("tanner", "Hz", 129, 30),     # lift 31, 465 check rows
+    ("lp118_0", "Hz", 1, 50),      # a lone shot
+])
+def test_flood_qc_kernel_equals_plain(cuda_device, kind, code, side, B,
+                                      max_iter):
+    """Kernel F against its plain version: n_iter, converged and the
+    estimate equal, the posterior bit for bit (the kernel sums a variable's
+    deltas in the plain version's order; BP calls tanhf, logf and IEEE
+    division as torch does on the card)."""
+    H = np.asarray(getattr(get_code(code), side)) % 2
+    dec = _decoder(H, "F", cuda_device, max_iter, kind, stacked=True)
+    assert dec.stacked
+    syn = _syndromes(9, H, B, 0.04, cuda_device)
+    lch = ms_qc_cuda.llr_prior(np.float32(0.03) / np.float32(3.0))
+    before = dict(flood_qc_cuda.LAUNCHES)
+    kp, ki, kc = flood_qc_cuda.flood_qc(dec, syn, lch)
+    pp, pi, pc = flood_qc_cuda.flood_qc_plain(dec, syn, lch)
+    assert flood_qc_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
+    assert kp.shape == (B, H.shape[1]) and kp.is_contiguous()
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp < 0, pp < 0)
+    assert torch.equal(kp, pp)
+    assert B == 1 or kc.any()
+    # through the decoder module, on the card: the kernel, not kernel B
+    b_before = dict(ms_qc_cuda.LAUNCHES)
+    out = dec(syn.to(torch.int8), np.float32(0.03) / np.float32(3.0))
+    assert ms_qc_cuda.LAUNCHES == b_before
+    assert torch.equal(out.posterior, kp) and torch.equal(out.n_iter, ki)
+
+
+@pytest.mark.cuda
+def test_flood_qc_state_beyond_shared_memory_raises(cuda_device):
+    """A shot's state that does not fit a block's shared memory raises a
+    ValueError that names the size; nothing falls back."""
+    from qldpcsim_torch.ops.qc import QCStructure
+
+    L, m_b, n_b = 64, 60, 120
+    shifts = np.full((m_b, n_b), -1)
+    for i in range(m_b):
+        shifts[i, [(2 * i + t) % n_b for t in range(8)]] = 1
+    dec = ms_qc_cuda.make_qc_decoder(
+        QCStructure(L=L, shifts=shifts), DecoderConfig(schedule="F"),
+        device=cuda_device, stacked=True)
+    assert dec.stacked
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        flood_qc_cuda.flood_qc(dec, torch.zeros((2, m_b * L),
+                                                device=cuda_device), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code,B,max_iter", [
+    ("lp118_0", 4096, 6), ("lp118_0", 300, 50), ("lp04_0", 300, 30),
+    ("tanner", 129, 20),
+])
+def test_qc_kernel_check_every_layer_equals_plain(cuda_device, kind, code, B,
+                                                  max_iter):
+    """Kernel B with one convergence check after every layer group against
+    its plain version, bit for bit; some shot stops elsewhere than with one
+    check per iteration."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = _decoder(H, "L", cuda_device, max_iter, kind, chk="layer")
+    assert dec.track_mis
+    syn_T = _syndromes(7, H, B, 0.05, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    before = ms_qc_cuda.LAUNCHES[kind]
+    kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
+    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
+    assert ms_qc_cuda.LAUNCHES[kind] == before + 1
+    assert kc.any()
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp, pp)
+    ip = ms_qc_cuda.ms_qc(_decoder(H, "L", cuda_device, max_iter, kind),
+                          syn_T, lch)[0]
+    assert not torch.equal(ip, kp)
 
 
 @pytest.mark.cuda

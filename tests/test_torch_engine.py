@@ -238,6 +238,135 @@ def test_bp_osd_qbler_within_4_sigma_of_reference_simulate_p():
     assert 0.0 < res.qbler < 1.0
 
 
+def _lp04():
+    c = get_code("lp04_0")
+    return np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+
+
+def _sum_chunks(pipe, keys, p, n_valids, body):
+    tot = {}
+    for k, nv in zip(keys, n_valids):
+        for name, v in body(k, p, nv).items():
+            tot[name] = tot.get(name, 0) + int(v)
+    return tot
+
+
+@pytest.mark.parametrize("dec_type,sched,iters", [("MS", "L", 8),
+                                                  ("BP", "F", 12)])
+@pytest.mark.parametrize("pending_max", [8192, 16])
+def test_group_osd_pass_equals_in_chunk_osd(monkeypatch, dec_type, sched,
+                                            iters, pending_max):
+    """The group-level OSD pass of `_multi_chunk_body` gives the counters of
+    the self-contained chunks, whatever the flush bound: OSD acts shot by
+    shot, and one pipeline decodes both ways (so BP is exact here too)."""
+    Hx, Hz = _lp04()
+    cfg = SimConfig(shots=5 * 64, dec_type=dec_type, dec_iterations=iters,
+                    dec_schedule=sched, osd_order=2, batch_size=64,
+                    rng_seed=6, device="cpu")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    key = montecarlo.fold_in(montecarlo.prng_key(6), 0)
+    keys = montecarlo.chunk_keys(key, 0, 5).reshape(5, 1, 2)
+    n_valids = [64, 64, 64, 64, 40]
+    ref = _sum_chunks(pipe, keys, 0.08, n_valids, pipe._chunk_body)
+    in_chunk_shots = dict(pipe.osd_shots)
+    pipe.osd_shots, pipe.osd_syncs = {"x": 0, "z": 0}, 0
+    flushes = []
+    finish = pipe._osd_group_finish
+    monkeypatch.setattr(pipe, "_osd_group_finish",
+                        lambda pend: flushes.append(sum(
+                            d["cx"].shape[0] for d in pend)) or finish(pend))
+    monkeypatch.setattr(montecarlo, "_OSD_PENDING_MAX", pending_max)
+    out = {k: int(v) for k, v in
+           pipe._multi_chunk_body(keys, 0.08, n_valids).items()}
+    assert out == ref
+    assert pipe.osd_shots == in_chunk_shots and min(in_chunk_shots.values())
+    if pending_max == 16:
+        # bounded: a pass as soon as 16 records wait, never a chunk later
+        assert len(flushes) > 1 and max(flushes) < 16 + 64
+    else:
+        assert len(flushes) == 1
+    # one sync per chunk for the compaction, one per side per pass
+    assert pipe.osd_syncs == 5 + 2 * len(flushes)
+
+
+def test_group_osd_counters_bit_exact_with_reference_pipeline():
+    """MS-L + OSD-2 over 4 chunks (the first self-contained, three through
+    the group-level pass): the 9 counters equal the reference chain's."""
+    Hx, Hz = _lp04()
+    cfg = SimConfig(shots=4 * 64 - 10, dec_type="MS", dec_iterations=8,
+                    dec_schedule="L", osd_order=2, batch_size=64,
+                    rng_seed=6, device="cpu")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    res = simulate_p(Hx, Hz, 0.08, cfg, pipeline=pipe)
+    assert _counters(res) == _reference_osd_counters(Hx, Hz, 0.08,
+                                                     4 * 64 - 10, 64, 6, 8, 2)
+    assert pipe.osd_shots["x"] > 0 and pipe.osd_shots["z"] > 0
+
+
+def test_group_osd_ms_counters_equal_reference_simulate_p():
+    """Steane, MS-L-8 + OSD-2, 5 chunks: the JAX package's `simulate_p`
+    (its deferred OSD with the in-chunk overflow) and the port's give the
+    same 9 counters."""
+    c = get_code("steane")
+    kw = dict(shots=300, dec_type="MS", dec_iterations=8, dec_schedule="L",
+              osd_order=2, batch_size=64, rng_seed=3)
+    ref = ref_simulate_p(c.Hx, c.Hz, 0.1, RefSimConfig(**kw, device="cpu"))
+    pipe = ShotPipeline(c.Hx, c.Hz, SimConfig(**kw, device="cpu"))
+    res = simulate_p(c.Hx, c.Hz, 0.1, pipe.cfg, pipeline=pipe)
+    assert _counters(res) == _counters(ref)
+    assert pipe.osd_shots["x"] > 0 and pipe.osd_shots["z"] > 0
+
+
+def test_group_osd_bp_qbler_within_4_sigma_of_reference_simulate_p():
+    """BP-F + OSD-2 on lp04_0 over 8 chunks, the last 7 through the
+    group-level pass: qBLER within 4 sigma of the JAX package's."""
+    Hx, Hz = _lp04()
+    shots, p = 1024, 0.08
+    kw = dict(shots=shots, dec_type="BP", dec_iterations=20,
+              dec_schedule="F", osd_order=2, batch_size=128, rng_seed=7)
+    ref = ref_simulate_p(Hx, Hz, p, RefSimConfig(**kw, device="cpu"))
+    res = simulate_p(Hx, Hz, p, SimConfig(**kw, device="cpu"))
+    for a, b in ((ref.qbler, res.qbler), (ref.qbler_honest, res.qbler_honest)):
+        pool = (a + b) / 2
+        sigma = math.sqrt(max(pool * (1 - pool), 1e-12) * 2 / shots)
+        assert abs(a - b) <= 4 * sigma, (a, b)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dec_type="MS", dec_iterations=8, dec_schedule="L", osd_order=2),
+    dict(dec_type="BP", dec_iterations=12, dec_schedule="F"),
+    dict(dec_type="BF"),
+])
+def test_validate_encoding_leaves_the_counters(kw):
+    """Frame invariance end to end: encode -> corrupt -> extract gives the
+    counters of the frame-free channel, and the same errors and syndromes
+    chunk by chunk."""
+    Hx, Hz = _lp04()
+    cfg = SimConfig(shots=200, batch_size=64, rng_seed=4, device="cpu", **kw)
+    plain = ShotPipeline(Hx, Hz, cfg)
+    framed = ShotPipeline(Hx, Hz, dataclasses.replace(
+        cfg, validate_encoding=True))
+    assert plain.encoder is None and framed.encoder is not None
+    keys = montecarlo.chunk_keys(montecarlo.prng_key(4), 0, 1)
+    for a, b in zip(plain._sample_chunk(keys, 0.07),
+                    framed._sample_chunk(keys, 0.07)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    a = simulate_p(Hx, Hz, 0.07, plain.cfg, pipeline=plain)
+    b = simulate_p(Hx, Hz, 0.07, framed.cfg, pipeline=framed)
+    assert _counters(a) == _counters(b)
+    assert _ckpt_id(plain, plain.cfg, 4, 0.07, 0) != _ckpt_id(
+        framed, framed.cfg, 4, 0.07, 0)
+
+
+def test_validate_encoding_counters_equal_reference_simulate_p():
+    c = get_code("steane")
+    kw = dict(shots=300, dec_type="MS", dec_iterations=8, dec_schedule="L",
+              batch_size=64, rng_seed=2, validate_encoding=True)
+    ref = ref_simulate_p(c.Hx, c.Hz, 0.08, RefSimConfig(**kw, device="cpu"))
+    res = simulate_p(c.Hx, c.Hz, 0.08, SimConfig(**kw, device="cpu"))
+    assert _counters(res) == _counters(ref)
+
+
 def test_counters_do_not_depend_on_the_batch():
     """The per-tile key contract: any chunking of the same tile stream gives
     the same counters."""
@@ -260,7 +389,7 @@ def test_batch_and_tile_sizes():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(dec_type="BF", bf_residual="or"), ValueError),
-    (dict(validate_encoding=True), NotImplementedError),
+    (dict(dec_type="MS", osd_order=7), ValueError),
     (dict(dec_type="GN"), ValueError),
     (dict(device="mps"), ValueError),
 ])

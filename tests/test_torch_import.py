@@ -39,6 +39,11 @@ print(",".join(bad))
     "qldpcsim_torch.decoders.bp, qldpcsim_torch.decoders.ms_mxu, "
     "qldpcsim_torch.decoders.bp_mxu, qldpcsim_torch.decoders.bf, "
     "qldpcsim_torch.decoders.ng, qldpcsim_torch.decoders.checknode",
+    "import qldpcsim_torch.ops.flood_qc_cuda, qldpcsim_torch.channel.encoder, "
+    "qldpcsim_torch.utils.profiling, qldpcsim_torch.utils.threefry",
+    "import qldpcsim_torch.cli, qldpcsim_torch.__main__; "
+    "from qldpcsim_torch.compat import decoders, simulator, gf2math, "
+    "PCMlibrary; import qldpcsim_torch.compat.PMClibrary",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -62,6 +67,11 @@ def _imported_modules(path: Path):
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"qldpcsim_torch/cli.py", "qldpcsim_torch/__main__.py",
+            "qldpcsim_torch/compat.py", "qldpcsim_torch/channel/encoder.py",
+            "qldpcsim_torch/utils/profiling.py",
+            "qldpcsim_torch/ops/flood_qc_cuda.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
         for mod in _imported_modules(f):

@@ -1,6 +1,7 @@
 """The port's threefry key chain is bit-exact with jax.random (threefry2x32,
 jax_threefry_partitionable=True): PRNGKey, fold_in, the engine's chunk_keys
-and 32-bit bits, over several seeds, p-indices and tile ranges."""
+and 32-bit bits, over several seeds, p-indices and tile ranges, and split,
+uniform and bernoulli (the encoder's draws)."""
 
 import jax
 import jax.numpy as jnp
@@ -67,6 +68,33 @@ def test_random_bits(seed, shape):
     kt = threefry.fold_in(threefry.prng_key(seed), 5)
     ref = jax.random.bits(key, shape, jnp.uint32)
     assert np.array_equal(_np(ref), threefry.random_bits(kt, shape).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 4, 7])
+def test_split(seed, num):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 2)
+    kt = threefry.fold_in(threefry.prng_key(seed), 2)
+    out = threefry.split(kt, num)
+    assert out.shape == (num, 2)
+    assert np.array_equal(_np(jax.random.split(key, num)), out.numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(5,), (64, 30), (33, 257)])
+def test_uniform_and_bernoulli(seed, shape):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 9)
+    kt = threefry.fold_in(threefry.prng_key(seed), 9)
+    u = threefry.uniform(kt, shape)
+    assert u.dtype == torch.float32
+    assert np.array_equal(np.asarray(jax.random.uniform(key, shape)),
+                          u.numpy())
+    assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+    for p in (0.5, 0.1, 1.0 / 3.0):
+        ref = jax.random.bernoulli(key, p, shape)
+        out = threefry.bernoulli(kt, p, shape)
+        assert out.dtype == torch.bool
+        assert np.array_equal(np.asarray(ref), out.numpy())
 
 
 def test_random_bits_batched_over_keys_is_vmap():

@@ -1,8 +1,11 @@
 """The port's min-sum QC decoder (plain version on CPU tensors) is bit-exact
 with the reference's Pallas kernel run in interpret mode: e_hat, n_iter,
-converged and the posterior, under F and L, at a batch that is not a
+converged and the posterior, under F and L, with one convergence check per
+iteration and with one after every layer group, at a batch that is not a
 multiple of the kernel's block (kernel B against its plain version on the
 card: tests/test_torch_cuda.py)."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ from qldpcsim_tpu.codes import get_code
 from qldpcsim_tpu.decoders import DecoderConfig as RefConfig
 from qldpcsim_tpu.decoders import build_layers as ref_build_layers
 from qldpcsim_tpu.ops.ms_qc_pallas import make_ms_qc_decoder
+from qldpcsim_tpu.ops.ms_qc_pallas import make_qc_decoder as ref_make_qc
 from qldpcsim_tpu.ops.qc import block_groups_of_layers, detect_qc
 
 from qldpcsim_torch.convert import qc_tables_from_reference
@@ -112,10 +116,79 @@ def test_tables_follow_reference_structures():
         qc_tables_from_reference(st, [[1, 0]] + [[i] for i in range(2, 15)])
 
 
+def _layer_pair(code, kind, max_iter, chk="layer"):
+    H = np.asarray(get_code(code).Hz) % 2
+    st = detect_qc(H)
+    ref = ref_make_qc(
+        st, RefConfig(dec_type=kind, max_iter=max_iter, schedule="L",
+                      qc_check_every=chk),
+        layers=ref_build_layers(H, "L"), B_blk=32, interpret=True, kind=kind)
+    port = ms_qc_cuda.make_qc_decoder(
+        st, DecoderConfig(dec_type=kind, max_iter=max_iter, schedule="L",
+                          qc_check_every=chk), layers=build_layers(H, "L"))
+    return H, ref, port
+
+
+@pytest.mark.parametrize("code,max_iter,p_err", [
+    ("lp04_0", 10, 0.03),      # the case of the reference's granularity test
+    ("lp04_0", 3, 0.06),       # shots that run out of iterations
+    ("lp118_0", 12, 0.05),
+])
+def test_check_every_layer_equals_pallas_interpret(code, max_iter, p_err):
+    """One convergence check after every layer group: MS bit for bit,
+    posterior included (the arithmetic is the per-iteration kernel's; only
+    when a shot stops changes)."""
+    H, ref, port = _layer_pair(code, "MS", max_iter)
+    assert port.track_mis
+    syn = _syndromes(23, H, 32, p_err)
+    r, o = ref(syn, 0.015), port(torch.from_numpy(syn), 0.015)
+    _assert_same(r, o)
+    conv = np.asarray(r.converged)
+    e = o.e_hat.numpy().astype(np.int64)
+    assert conv.any() and (max_iter > 3 or not conv.all())
+    assert ((e @ H.T.astype(np.int64)) % 2 == syn)[conv].all()
+    # the granularity matters: some shot stops elsewhere than with one
+    # check per iteration
+    it = ms_qc_cuda.make_qc_decoder(
+        detect_qc(H), DecoderConfig(dec_type="MS", max_iter=max_iter,
+                                    schedule="L"),
+        layers=build_layers(H, "L"))(torch.from_numpy(syn), 0.015)
+    assert not torch.equal(it.posterior, o.posterior)
+    both = (it.converged & o.converged).numpy()
+    assert (it.n_iter.numpy()[both] == o.n_iter.numpy()[both]).mean() >= 0.9
+
+
+def test_check_every_layer_bp_agrees_with_pallas_interpret():
+    """BP with the per-layer check: decisions, iteration counts and
+    convergence as the reference's on every shot (measured: 32 of 32; the
+    posterior differs as BP's does, tests/test_torch_bp_qc.py)."""
+    H, ref, port = _layer_pair("lp04_0", "BP", 10)
+    syn = _syndromes(23, H, 32, 0.03)
+    r, o = ref(syn, 0.015), port(torch.from_numpy(syn), 0.015)
+    assert (np.asarray(r.n_iter) == o.n_iter.numpy()).mean() >= 0.95
+    assert (np.asarray(r.converged) == o.converged.numpy()).mean() >= 0.95
+    assert (np.asarray(r.e_hat) == o.e_hat.numpy()).all(axis=1).mean() >= 0.95
+
+
+def test_check_every_layer_under_flooding_is_iter():
+    """One layer group: "layer" and "iter" are the same decoder."""
+    H = np.asarray(get_code("lp04_0").Hz) % 2
+    st = detect_qc(H)
+    cfg = DecoderConfig(dec_type="MS", max_iter=8, schedule="F")
+    a = ms_qc_cuda.make_qc_decoder(st, cfg)
+    b = ms_qc_cuda.make_qc_decoder(st, dataclasses.replace(
+        cfg, qc_check_every="layer"))
+    assert not a.track_mis and not b.track_mis
+    syn = torch.from_numpy(_syndromes(5, H, 24, 0.05))
+    ra, rb = a(syn, 0.02), b(syn, 0.02)
+    for name in ("e_hat", "n_iter", "converged", "posterior"):
+        assert torch.equal(getattr(ra, name), getattr(rb, name)), name
+
+
 def test_unsupported_options_raise():
     st = detect_qc(np.asarray(get_code("lp04_0").Hz) % 2)
-    with pytest.raises(NotImplementedError):
-        ms_qc_cuda.make_qc_decoder(st, DecoderConfig(qc_check_every="layer"))
+    with pytest.raises(ValueError):
+        ms_qc_cuda.make_qc_decoder(st, DecoderConfig(qc_check_every="row"))
     with pytest.raises(ValueError):
         ms_qc_cuda.make_qc_decoder(st, DecoderConfig(dec_type="BF"))
     with pytest.raises(ValueError):
