@@ -367,11 +367,23 @@ class ShotPipeline(nn.Module):
         counts["nIterAccZ"] = torch.where(valid, it_z, zero).sum()
 
 
+def _decoder_choice(dec: nn.Module) -> str:
+    """The decoder a side resolved to: the class of its (first-stage)
+    decoder and, for the QC decoder, whether the slot-stacked flooding
+    kernel was taken. Neither is a field of the decoder config (the second
+    is read from the environment when the decoder is built), and the two
+    flooding kernels' counters differ."""
+    first = dec.decs[0] if hasattr(dec, "decs") else dec
+    stacked = ":stacked" if getattr(first, "stacked", False) else ""
+    return type(first).__name__ + stacked
+
+
 def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
              p_index: int) -> str:
     """Checkpoint identity digest: everything that determines the counter
     stream and its chunk layout. The code itself (Hx/Hz bytes), the fully
-    resolved decoder config, the OSD order, layer_compat, the chunk layout
+    resolved decoder config and the decoder each side resolved to (the
+    kernel choice included), the OSD order, layer_compat, the chunk layout
     (batch and RNG tile size: `chunks_done` only means something under the
     layout that wrote it), shots, seed, validate_encoding, p and the
     p-index. A resume after a
@@ -384,6 +396,7 @@ def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
         "Hx": hashlib.sha256(pipe.Hx.tobytes()).hexdigest(),
         "Hz": hashlib.sha256(pipe.Hz.tobytes()).hexdigest(),
         "dcfg": dataclasses.asdict(pipe.dcfg),
+        "decoders": [_decoder_choice(pipe.dec_x), _decoder_choice(pipe.dec_z)],
         "osd_order": int(cfg.osd_order),
         "layer_compat": bool(cfg.layer_compat),
         "batch": pipe.batch, "tile": pipe.tile,

@@ -1,14 +1,25 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `qldpcsim_torch/csrc/<name>.cu` exposes a plain C interface. On first
-use it is compiled for Hopper (`sm_90a`) into `build/qldpcsim_torch/` at the
-root of the checkout, under a name that carries a digest of the source and
-flags (an edited source rebuilds), and loaded with `ctypes`. A build needs
-no PyTorch headers, so it takes seconds.
+use it is compiled for Hopper (`sm_90a`) under a name that carries a digest
+of the source and flags (an edited source rebuilds), and loaded with
+`ctypes`. A build needs no PyTorch headers, so it takes seconds.
+
+Where the libraries go: the directory named by `QLDPC_TORCH_BUILD_DIR` in
+the environment if it is set (and nowhere else: an unusable override
+raises); otherwise `build/qldpcsim_torch/` beside the package (the root of a
+checkout), and when that cannot be created or written (an installed package
+under a read-only prefix) the per-user cache directory
+`~/.cache/qldpcsim_torch`. That fallback follows `HOME` and nothing else;
+`QLDPC_TORCH_BUILD_DIR` is the way to put the libraries anywhere else. When
+none is writable the build raises.
 
 `-fmad=false` keeps nvcc from contracting a multiply and an add into one
 FMA: the kernels promise the same float32 roundings as their plain versions.
-A missing nvcc or a failed build raises; nothing falls back.
+`-split-compile=0` lets nvcc optimise the many template instances of one
+source on all cores (the six sources at once: 13.7 s against 22.9 s on the
+8-core host of an H100, nvcc 12.9). A missing nvcc or a failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -25,9 +36,10 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qldpcsim_torch"
+BUILD_DIR_ENV = "QLDPC_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-split-compile=0", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds the build took, nvcc's output); filled by builds in this
@@ -48,15 +60,38 @@ def nvcc_path() -> str:
                        "kernels of qldpcsim_torch")
 
 
+def user_cache_dir() -> Path:
+    return Path(os.path.expanduser("~")) / ".cache" / "qldpcsim_torch"
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built into, created and writable:
+    the environment's override, else `BUILD_DIR`, else the per-user cache.
+    Raises the last OSError when no candidate can be used."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    candidates = [Path(override)] if override else [BUILD_DIR,
+                                                    user_cache_dir()]
+    for path in candidates:
+        try:
+            path.mkdir(parents=True, exist_ok=True)
+            if not os.access(path, os.W_OK | os.X_OK):
+                raise PermissionError(f"{path} is not writable")
+            return path
+        except OSError as exc:
+            err = exc
+    raise OSError(f"no writable build directory for the CUDA kernels among "
+                  f"{[str(c) for c in candidates]} (set {BUILD_DIR_ENV})"
+                  ) from err
+
+
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = build_dir() / f"{name}-{digest}.so"
     if out.exists():
         BUILD_INFO.setdefault(name, (0.0, "already built"))
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()

@@ -73,6 +73,16 @@ def smem_bytes(tabs: QCTables) -> int:
     return 4 * (tabs.n + 2 * S * tabs.L + tabs.m) + 4 * (3 * S + tabs.n_b + 1)
 
 
+def supports(st, tabs: QCTables) -> bool:
+    """True when kernel F can decode this code: a uniform block-row degree
+    within the degrees the kernel is built for, and one shot's state within
+    a block's shared memory. Asked where the kernel is selected, on every
+    device; a code beyond either limit goes to the per-slot kernel."""
+    deg = uniform_degree(st)
+    return (deg is not None and 1 <= deg <= _KERNEL_MAX_DEG
+            and smem_bytes(tabs) <= _MAX_SMEM)
+
+
 def stacked_tables(tabs: QCTables) -> dict:
     """The index tensors of the stacked formulation, as numpy arrays:
     `col_ptr`, `col_k` (the kernel's column view); `gidx` (S * L,): the

@@ -26,15 +26,26 @@ group: the mismatch bits mis = H e XOR syn start as the syndrome (the prior
 is positive, so e = 0), every posterior write flips the bits of the check
 rows of the variables whose sign it changed, a shot latches it + 1 when its
 bits are all zero after a group, and the freeze mask is re-read per group.
-Under F there is one group, and "layer" is "iter". Lanes never interact,
-so the kernel gives each shot its own thread and loop and exits it at
-convergence, which is exactly the Pallas kernel's freeze of converged
-lanes. The plain version runs all lanes together until every lane has
-converged or max_iter is reached, masking the updates of converged lanes as
-the Pallas kernel does; its rolls are index arithmetic (r + s) mod L.
+Under F there is one group, and "layer" is "iter". Shots never interact,
+so the kernel gives each shot a block of its own, keeps the shot's state
+in shared memory, runs the check rows of a layer group side by side (a
+thread per edge or per check row; groups that need a snapshot add their
+deltas per variable in ascending slot order in a second phase) and leaves
+the shot's loop at convergence, which is exactly the Pallas kernel's freeze
+of converged lanes. The plain version runs all shots together until
+every one has converged or max_iter is reached, masking the updates of
+converged shots as the Pallas kernel does; its rolls are index arithmetic
+(r + s) mod L.
 
 `ms_qc` runs the kernel for CUDA tensors and the plain version for CPU
-tensors. `LAUNCHES[kind]` counts kernel launches.
+tensors. `LAUNCHES[kind]` counts kernel launches. When the decoder is built,
+its tables decide how the kernel will run: `QCDecoder.per_edge` (a thread
+per edge when the largest layer group's edges fit two passes of 256
+threads, as under a layered schedule; else, as under flooding, a thread per
+check row), `QCDecoder.threads` per shot (one per edge or row of that group,
+in whole warps, up to 256) and `QCDecoder.state_on_device` (True when one
+shot's state exceeds a block's shared memory: the same kernel then keeps the
+state in device memory). Nothing is decided by a failed launch.
 
 Under F with one check per iteration and a uniform block-row degree,
 `make_qc_decoder` can take the slot-stacked kernel F instead
@@ -70,6 +81,7 @@ LAUNCHES = {kind: 0 for kind in KINDS}
 _PRIOR_EPS = np.float32(1e-9)
 _BIG = 1e30  # stand-in for +inf in the min reductions, as in the reference
 _KERNEL_MAX_DEG = 32  # largest block-row degree ms_qc.cu is instantiated for
+MAX_SMEM = 232448     # shared memory one block can use on an H100
 
 
 def llr_prior(p) -> float:
@@ -181,11 +193,14 @@ def ms_qc_plain(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
 
 
 def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
-    """Kernel B: the contract of `ms_qc_plain`, on the card."""
+    """Kernel B: the contract of `ms_qc_plain`, on the card. syn_T may have
+    any strides (the kernel reads a shot's m syndromes through them; the
+    transpose of a (B, m) tensor is read in whole lines). The posterior
+    comes back as the (n, B) transpose of a shot-major (B, n) tensor."""
     tabs = dec.tabs
     if syn_T.dtype != torch.float32 or syn_T.dim() != 2 \
-            or syn_T.shape[0] != tabs.m or not syn_T.is_contiguous():
-        raise ValueError(f"syn_T must be contiguous ({tabs.m}, B) float32, "
+            or syn_T.shape[0] != tabs.m:
+        raise ValueError(f"syn_T must be ({tabs.m}, B) float32, "
                          f"got {tuple(syn_T.shape)} {syn_T.dtype}")
     if dec.row_ptr.device != syn_T.device:
         raise ValueError(f"decoder tables on {dec.row_ptr.device}, "
@@ -198,34 +213,31 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
     lib = _build.load("ms_qc")
     fn = lib.ms_qc_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 15)
-    post = torch.empty((tabs.n, B), dtype=torch.float32, device=dev)
-    c2v = torch.empty((tabs.n_slots * tabs.L, B), dtype=torch.float32,
-                      device=dev)
-    snap = (torch.empty_like(post) if tabs.group_snap.any() else None)
-    mis, cols = None, [None] * 3
-    if dec.track_mis:
-        mis = torch.empty((-(-tabs.m // 32), B), dtype=torch.int32, device=dev)
-        cols = [dec.col_ptr.data_ptr(), dec.col_i.data_ptr(),
-                dec.col_s.data_ptr()]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 13)
+    post = torch.empty((B, tabs.n), dtype=torch.float32, device=dev)
+    state = None
+    if dec.state_on_device:
+        state = torch.empty((B, dec.state_words), dtype=torch.float32,
+                            device=dev)
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(syn_T.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
-            dec.clamp, dec.max_iter, tabs.L,
-            tabs.m_b, tabs.n_b, len(tabs.group_snap), tabs.max_deg,
-            tabs.n_slots,
+    rc = fn(syn_T.data_ptr(), syn_T.stride(0), syn_T.stride(1), B,
+            KINDS.index(dec.kind), lch, dec.beta, dec.clamp, dec.max_iter,
+            tabs.L, tabs.m_b, tabs.n_b, len(tabs.group_snap), tabs.max_deg,
+            tabs.n_slots, dec.delta_slots, int(dec.track_mis),
+            int(dec.per_edge), dec.threads,
             dec.row_ptr.data_ptr(), dec.slot_j.data_ptr(),
-            dec.slot_s.data_ptr(), dec.group_ptr.data_ptr(),
-            dec.group_snap.data_ptr(), *cols, c2v.data_ptr(), post.data_ptr(),
-            None if snap is None else snap.data_ptr(),
-            None if mis is None else mis.data_ptr(),
+            dec.slot_s.data_ptr(), dec.slot_row.data_ptr(),
+            dec.group_ptr.data_ptr(), dec.group_snap.data_ptr(),
+            dec.col_ptr.data_ptr(), dec.col_k.data_ptr(),
+            None if state is None else state.data_ptr(), post.data_ptr(),
             n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "ms_qc", rc)
     LAUNCHES[dec.kind] += 1
-    return post, n_iter, conv
+    return post.T, n_iter, conv
 
 
 def ms_qc(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
@@ -265,8 +277,14 @@ class QCDecoder(nn.Module):
     block-rows per iteration) or block-row-aligned 'L'. `stacked` asks for
     the slot-stacked flooding kernel F (None: `QLDPC_QC_STACKED=1` in the
     environment asks); it is taken, as in the reference, only under F with
-    one check per iteration and a uniform block-row degree, else kernel B
-    decodes (`self.stacked` says which).
+    one check per iteration, a uniform block-row degree of at most 16 and a
+    shot's state within a block's shared memory, else kernel B decodes
+    (`self.stacked` says which, on every device).
+
+    For kernel B the tables also fix, here and not at launch, `per_edge`
+    (a thread per edge, else per check row), `threads` per shot and
+    `state_on_device` (the shot's state in device memory because it exceeds
+    a block's shared memory; set it to True to force that variant).
     """
 
     def __init__(self, st: QCStructure, cfg: DecoderConfig,
@@ -291,7 +309,7 @@ class QCDecoder(nn.Module):
             stacked = os.environ.get("QLDPC_QC_STACKED") == "1"
         self.stacked = bool(stacked and cfg.schedule.upper() == "F"
                             and cfg.qc_check_every == "iter"
-                            and flood_qc_cuda.uniform_degree(st) is not None)
+                            and flood_qc_cuda.supports(st, t))
         self.beta = float(np.float32(cfg.beta))
         # BP clamp: 1 - eps in float64, as Python forms it in the reference,
         # then rounded to float32
@@ -321,14 +339,30 @@ class QCDecoder(nn.Module):
         # plain version: gather index per block-row
         for i in range(t.m_b):
             buf(f"gidx{i}", t.gather_index(i).reshape(-1), torch.int64)
+        # kernel: the block-row of each slot and the column view of the
+        # slots; how many threads a shot gets and where its state lives
+        col_ptr, col_k = t.col_slots()
+        buf("slot_row", np.repeat(np.arange(t.m_b), np.diff(t.row_ptr)))
+        buf("col_ptr", col_ptr)
+        buf("col_k", col_k)
+        slots = t.row_ptr[t.group_ptr[1:]] - t.row_ptr[t.group_ptr[:-1]]
+        self.delta_slots = int((slots * (t.group_snap != 0)).max(initial=0))
+        self.table_words = (t.m_b + 1 + 4 * t.n_slots
+                            + 2 * len(t.group_snap) + 1 + t.n_b + 1)
+        self.state_words = (t.n + (t.n_slots + self.delta_slots) * t.L + t.m
+                            + (-(-t.m // 32) if self.track_mis else 0))
+        self.state_on_device = (
+            4 * (self.table_words + self.state_words) > MAX_SMEM)
+        # a thread per edge (8 or 32 lanes side by side per check row) when
+        # the largest layer group is done in two passes of 256 threads,
+        # else (flooding over a large code) a thread per check row
+        rows = int(np.diff(t.group_ptr).max(initial=1)) * t.L
+        lanes = 8 if t.max_deg <= 8 else 32
+        self.per_edge = rows * lanes <= 512
+        work = rows * lanes if self.per_edge else rows
+        self.threads = min(256, -(-work // 32) * 32)
         if self.track_mis:
-            # the column view of the slots (kernel), and per block-row the
-            # columns of H at its variables (plain version)
-            col_ptr, col_k = t.col_slots()
-            slot_row = np.repeat(np.arange(t.m_b), np.diff(t.row_ptr))
-            buf("col_ptr", col_ptr)
-            buf("col_i", slot_row[col_k])
-            buf("col_s", t.slot_s[col_k])
+            # per block-row the columns of H at its variables (plain version)
             for i in range(t.m_b):
                 buf(f"hcol{i}", H[:, t.gather_index(i).reshape(-1)],
                     torch.float32)
@@ -338,8 +372,10 @@ class QCDecoder(nn.Module):
             post, n_iter, conv = flood_qc_cuda.flood_qc(
                 self, syndromes.to(torch.float32).contiguous(), llr_prior(p))
         else:
-            syn_T = syndromes.to(torch.float32).T.contiguous()
-            post, n_iter, conv = ms_qc(self, syn_T, llr_prior(p))
+            # the transposes are views: the kernel reads (B, m) lines and
+            # writes (B, n) lines
+            post, n_iter, conv = ms_qc(
+                self, syndromes.to(torch.float32).T, llr_prior(p))
             post = post.T
         return DecodeResult(e_hat=(post < 0.0).to(torch.int8), n_iter=n_iter,
                             converged=conv, posterior=post)

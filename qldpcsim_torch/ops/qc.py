@@ -46,6 +46,15 @@ class QCStructure:
         """[(var_block j, shift s), ...] for block-row i."""
         return [(j, int(s)) for j, s in enumerate(self.shifts[i]) if s >= 0]
 
+    def lift(self) -> np.ndarray:
+        """The (m, n) int8 matrix H this structure describes."""
+        H = np.zeros((self.m, self.n), np.int8)
+        r = np.arange(self.L)
+        for i in range(self.m_b):
+            for j, s in self.blocks_of_row(i):
+                H[i * self.L + r, j * self.L + (r + s) % self.L] = 1
+        return H
+
 
 def detect_qc(H: np.ndarray, L: Optional[int] = None) -> Optional[QCStructure]:
     """Detect circulant-lifted structure; returns None if H is not QC for

@@ -16,6 +16,7 @@ import torch
 from qldpcsim_torch.codes import get_code
 from qldpcsim_torch.convert import osd_static_from_reference
 from qldpcsim_torch.decoders import DecoderConfig, build_layers
+from qldpcsim_torch.decoders.common import LayerSchedule
 from qldpcsim_torch.decoders.osd import OSD, OSDStatic
 from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
 from qldpcsim_torch.ops import (
@@ -27,7 +28,7 @@ from qldpcsim_torch.ops import (
     ms_qc_cuda,
     seq_qc_cuda,
 )
-from qldpcsim_torch.ops.qc import detect_qc
+from qldpcsim_torch.ops.qc import QCStructure, detect_qc
 from qldpcsim_torch.parallel.keys import chunk_keys
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
 
@@ -59,6 +60,52 @@ def _seq_decoder(H, device, max_iter, kind="MS"):
         detect_qc(H), DecoderConfig(dec_type=kind, max_iter=max_iter,
                                     schedule="S"),
         layers=build_layers(H, "S"), device=device, kind=kind)
+
+
+def _synthetic_lift(name):
+    """Lifted codes the library has none of: block-rows of degrees 2 to 5
+    (`irregular`), a uniform degree of 12 (`deg12`), and a state beyond a
+    block's shared memory for every QC kernel (`oversize`: 60 block-rows of
+    degree 14 over 120 variable blocks of lift 64)."""
+    rng = np.random.default_rng(21)
+    if name == "irregular":
+        L, m_b, n_b = 9, 6, 10
+        degs = [2, 5, 3, 4, 5, 2]
+    elif name == "deg12":
+        L, m_b, n_b = 8, 3, 14
+        degs = [12] * m_b
+    else:
+        L, m_b, n_b = 64, 60, 120
+        degs = [14] * m_b
+    shifts = np.full((m_b, n_b), -1)
+    for i, d in enumerate(degs):
+        shifts[i, rng.choice(n_b, d, replace=False)] = rng.integers(0, L, d)
+    return QCStructure(L=L, shifts=shifts)
+
+
+def _grouped_layers(st, sizes):
+    """Layers of whole block-rows, `sizes` block-rows each: groups whose
+    block-rows share a variable block read a snapshot."""
+    layers, i = [], 0
+    for size in sizes:
+        layers.append(np.arange(i * st.L, (i + size) * st.L))
+        i += size
+    assert i == st.m_b
+    return LayerSchedule.from_layers(layers, st.m)
+
+
+def _assert_b_equals_plain(dec, syn_T, lch):
+    """Kernel B against its plain version, bit for bit; returns the
+    kernel's (posterior, n_iter, converged)."""
+    before = dict(ms_qc_cuda.LAUNCHES)
+    kp, ki, kc = ms_qc_cuda.ms_qc_cuda(dec, syn_T, lch)
+    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
+    torch.cuda.synchronize()
+    assert ms_qc_cuda.LAUNCHES == dict(
+        before, **{dec.kind: before[dec.kind] + 1})
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp, pp)
+    return kp, ki, kc
 
 
 def _general_matrix(name):
@@ -180,40 +227,139 @@ def test_channel_kernel_equals_plain(cuda_device, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("code,sched", [
-    ("lp118_0", "L"), ("lp118_0", "F"), ("tanner", "L"), ("lp04_0", "F"),
+@pytest.mark.parametrize("code,sched,B,p_err", [
+    ("lp118_0", "L", 300, 0.05), ("lp118_0", "F", 300, 0.05),
+    ("tanner", "L", 300, 0.05), ("lp04_0", "F", 300, 0.05),
+    ("lp04_0", "L", 300, 0.05),    # lift 7, degree 7
+    ("tanner", "F", 129, 0.05),    # lift 31: a warp is no multiple of it
+    ("lp118_0", "L", 1, 0.05),     # a lone shot
+    ("lp118_0", "L", 4099, 0.05),  # the last block is not full
+    ("lp118_0", "L", 64, 0.0),     # zero syndromes: one iteration
+    ("lp118_0", "L", 300, 0.2),    # most shots run to the cap
 ])
-def test_ms_qc_kernel_equals_plain(cuda_device, code, sched):
+def test_ms_qc_kernel_equals_plain(cuda_device, code, sched, B, p_err):
     H = np.asarray(get_code(code).Hz) % 2
     dec = _decoder(H, sched, cuda_device)
-    syn_T = _syndromes(7, H, 300, 0.05, cuda_device).T.contiguous()
+    syn_T = _syndromes(7, H, B, p_err, cuda_device).T.contiguous()
     lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
-    before = ms_qc_cuda.LAUNCHES["MS"]
-    kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
-    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
-    assert ms_qc_cuda.LAUNCHES["MS"] == before + 1
-    assert kc.any() and ki.max() > 1
-    assert torch.equal(kp, pp) and torch.equal(ki, pi) and torch.equal(kc, pc)
+    kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    assert kp.shape == (H.shape[1], B) and kp.T.is_contiguous()
+    if p_err == 0.0:
+        assert (ki == 1).all() and kc.all() and not (kp < 0).any()
+    elif p_err == 0.2:
+        assert (ki == dec.max_iter).sum() > B // 2
+    elif B > 1:
+        assert kc.any() and ki.max() > 1
+    # the (m, B) transpose of shot-major syndromes is read as it lies
+    vp, vi, vc = ms_qc_cuda.ms_qc_cuda(dec, syn_T.T.contiguous().T, lch)
+    assert torch.equal(vp, kp) and torch.equal(vi, ki)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("code,sched", [
-    ("lp118_0", "F"), ("lp118_0", "L"), ("lp04_0", "F"),
+@pytest.mark.parametrize("code,sched,B,p_err", [
+    ("lp118_0", "F", 300, 0.05), ("lp118_0", "L", 300, 0.05),
+    ("lp04_0", "F", 300, 0.05), ("lp04_0", "L", 300, 0.05),
+    ("tanner", "L", 129, 0.05), ("lp118_0", "F", 1, 0.05),
+    ("lp118_0", "L", 4099, 0.03), ("lp118_0", "L", 64, 0.0),
+    ("lp118_0", "F", 300, 0.2),
 ])
-def test_bp_qc_kernel_equals_plain(cuda_device, code, sched):
+def test_bp_qc_kernel_equals_plain(cuda_device, code, sched, B, p_err):
     """Kernel B, kind BP: tanhf, logf and IEEE division, as torch's tanh,
     log and `/` on the card, so bit for bit, posterior included."""
     H = np.asarray(get_code(code).Hz) % 2
     dec = _decoder(H, sched, cuda_device, max_iter=30, kind="BP")
-    syn_T = _syndromes(8, H, 300, 0.05, cuda_device).T.contiguous()
+    syn_T = _syndromes(8, H, B, p_err, cuda_device).T.contiguous()
     lch = ms_qc_cuda.llr_prior(np.float32(0.03) / np.float32(3.0))
-    before = dict(ms_qc_cuda.LAUNCHES)
-    kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
-    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
-    assert ms_qc_cuda.LAUNCHES == dict(before, BP=before["BP"] + 1)
-    assert kc.any() and not kc.all()
+    kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    if p_err == 0.0:
+        assert (ki == 1).all() and kc.all()
+    elif p_err == 0.2:
+        assert (ki == dec.max_iter).sum() > B // 2
+    elif B > 1:
+        assert kc.any() and not kc.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("name,sizes,chk", [
+    ("irregular", None, "iter"), ("irregular", None, "layer"),
+    ("irregular", "F", "iter"), ("deg12", None, "iter"),
+    ("deg12", "F", "iter"), ("deg12", None, "layer"),
+    # layer groups of several block-rows that share variable blocks
+    ("irregular", (2, 1, 3), "iter"), ("irregular", (2, 1, 3), "layer"),
+    ("deg12", (2, 1), "layer"),
+])
+def test_qc_kernel_synthetic_lifts_equal_plain(cuda_device, kind, name, sizes,
+                                               chk):
+    """Kernel B on lifted codes with a non-uniform degree, a degree above 8,
+    and layer groups that need a snapshot, with both checks."""
+    st = _synthetic_lift(name)
+    H = st.lift()
+    sched = "F" if sizes == "F" else "L"
+    layers = None if sizes in (None, "F") else _grouped_layers(st, sizes)
+    dec = ms_qc_cuda.make_qc_decoder(
+        st, DecoderConfig(dec_type=kind, max_iter=20, schedule=sched,
+                          qc_check_every=chk), layers=layers,
+        device=cuda_device)
+    if isinstance(sizes, tuple):
+        assert dec.tabs.group_snap.any() and dec.delta_slots > 0
+        assert dec.track_mis == (chk == "layer")
+    syn_T = _syndromes(4, H, 200, 0.04, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.04) / np.float32(3.0))
+    for per_edge in (False, True):   # the tables' mapping and the other
+        dec.per_edge = per_edge
+        kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    assert len(torch.unique(ki)) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code,sched,chk", [
+    ("lp118_0", "L", "iter"), ("lp118_0", "L", "layer"),
+    ("lp118_0", "F", "iter"), ("tanner", "L", "layer"),
+])
+def test_qc_kernel_thread_counts_and_device_state(cuda_device, kind, code,
+                                                  sched, chk):
+    """Every way kernel B can run gives the plain version's bits: a thread
+    per edge (what the tables choose under L) or per check row (under F),
+    each also forced on the other schedule, and the variant that keeps the
+    shots' state in device memory, forced on a small code."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = _decoder(H, sched, cuda_device, 30, kind, chk=chk)
+    assert not dec.state_on_device
+    assert dec.per_edge == (sched == "L") and dec.threads == 256
+    syn_T = _syndromes(7, H, 150, 0.05, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    for on_device in (False, True):
+        dec.state_on_device = on_device
+        for per_edge in (sched == "L", sched != "L"):
+            dec.per_edge = per_edge
+            _assert_b_equals_plain(dec, syn_T, lch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+def test_qc_kernels_state_beyond_shared_memory(cuda_device, kind):
+    """A lifted code whose per-shot state exceeds a block's shared memory
+    decodes on the card as it does on the CPU: the tables choose the
+    device-memory variant of kernels B and D when the decoder is built."""
+    st = _synthetic_lift("oversize")
+    H = st.lift()
+    cfg = DecoderConfig(dec_type=kind, max_iter=6, schedule="F")
+    dec = ms_qc_cuda.make_qc_decoder(st, cfg, device=cuda_device,
+                                     stacked=True)
+    assert not dec.stacked and dec.state_on_device
+    syn_T = _syndromes(6, H, 40, 0.01, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.03) / np.float32(3.0))
+    _assert_b_equals_plain(dec, syn_T, lch)
+    seq = seq_qc_cuda.make_seq_qc_decoder(
+        st, dataclasses.replace(cfg, schedule="S", max_iter=3),
+        device=cuda_device, kind=kind)
+    assert seq.state_on_device
+    kp, ki, kc = seq_qc_cuda.seq_qc(seq, syn_T, lch)
+    pp, pi, pc = seq_qc_cuda.seq_qc_plain_blockrow(seq, syn_T, lch)
     assert torch.equal(ki, pi) and torch.equal(kc, pc)
-    assert torch.equal(kp, pp)
+    assert torch.equal(kp, pp) and kc.any()
 
 
 @pytest.mark.cuda
@@ -254,20 +400,19 @@ def test_flood_qc_kernel_equals_plain(cuda_device, kind, code, side, B,
 
 @pytest.mark.cuda
 def test_flood_qc_state_beyond_shared_memory_raises(cuda_device):
-    """A shot's state that does not fit a block's shared memory raises a
-    ValueError that names the size; nothing falls back."""
-    from qldpcsim_torch.ops.qc import QCStructure
-
-    L, m_b, n_b = 64, 60, 120
-    shifts = np.full((m_b, n_b), -1)
-    for i in range(m_b):
-        shifts[i, [(2 * i + t) % n_b for t in range(8)]] = 1
-    dec = ms_qc_cuda.make_qc_decoder(
-        QCStructure(L=L, shifts=shifts), DecoderConfig(schedule="F"),
-        device=cuda_device, stacked=True)
-    assert dec.stacked
+    """A shot's state that does not fit a block's shared memory: the decoder
+    module does not select kernel F for it, and the wrapper, called on such
+    a decoder all the same, raises a ValueError that names the size;
+    nothing falls back."""
+    st = _synthetic_lift("oversize")
+    dec = ms_qc_cuda.make_qc_decoder(st, DecoderConfig(schedule="F"),
+                                     device=cuda_device, stacked=True)
+    assert not dec.stacked
+    assert flood_qc_cuda.smem_bytes(dec.tabs) > 232448
+    for name, a in flood_qc_cuda.stacked_tables(dec.tabs).items():
+        setattr(dec, f"flood_{name}", torch.as_tensor(a, device=cuda_device))
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        flood_qc_cuda.flood_qc(dec, torch.zeros((2, m_b * L),
+        flood_qc_cuda.flood_qc(dec, torch.zeros((2, st.m),
                                                 device=cuda_device), 1.0)
 
 
@@ -275,7 +420,7 @@ def test_flood_qc_state_beyond_shared_memory_raises(cuda_device):
 @pytest.mark.parametrize("kind", ["MS", "BP"])
 @pytest.mark.parametrize("code,B,max_iter", [
     ("lp118_0", 4096, 6), ("lp118_0", 300, 50), ("lp04_0", 300, 30),
-    ("tanner", 129, 20),
+    ("tanner", 129, 20), ("lp118_0", 1, 50), ("lp118_0", 4099, 4),
 ])
 def test_qc_kernel_check_every_layer_equals_plain(cuda_device, kind, code, B,
                                                   max_iter):
@@ -287,16 +432,15 @@ def test_qc_kernel_check_every_layer_equals_plain(cuda_device, kind, code, B,
     assert dec.track_mis
     syn_T = _syndromes(7, H, B, 0.05, cuda_device).T.contiguous()
     lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
-    before = ms_qc_cuda.LAUNCHES[kind]
-    kp, ki, kc = ms_qc_cuda.ms_qc(dec, syn_T, lch)
-    pp, pi, pc = ms_qc_cuda.ms_qc_plain(dec, syn_T, lch)
-    assert ms_qc_cuda.LAUNCHES[kind] == before + 1
-    assert kc.any()
-    assert torch.equal(ki, pi) and torch.equal(kc, pc)
-    assert torch.equal(kp, pp)
-    ip = ms_qc_cuda.ms_qc(_decoder(H, "L", cuda_device, max_iter, kind),
-                          syn_T, lch)[0]
-    assert not torch.equal(ip, kp)
+    kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    if B > 1:
+        assert kc.any()
+        ip = ms_qc_cuda.ms_qc(_decoder(H, "L", cuda_device, max_iter, kind),
+                              syn_T, lch)[0]
+        assert not torch.equal(ip, kp)
+    zeros = torch.zeros_like(syn_T[:, :8])
+    zp, zi, zc = _assert_b_equals_plain(dec, zeros, lch)
+    assert (zi == 1).all() and zc.all()
 
 
 @pytest.mark.cuda
@@ -305,6 +449,10 @@ def test_qc_kernel_check_every_layer_equals_plain(cuda_device, kind, code, B,
     ("lp118_0", 300, 8, 0.04),     # lift 16
     ("tanner", 4096, 3, 0.047),    # the main path's shape (config 4 chunk)
     ("tanner", 128, 16, 0.047),    # the main path's last-stage window
+    ("tanner", 1, 30, 0.047),      # a lone shot
+    ("tanner", 4099, 2, 0.047),    # the last block is not full
+    ("lp04_0", 300, 6, 0.2),       # most shots run to the cap
+    ("lp118_0", 64, 8, 0.0),       # zero syndromes: row 0 alone
 ])
 @pytest.mark.parametrize("kind", ["MS", "BP"])
 def test_seq_qc_kernel_equals_plain(cuda_device, kind, code, B, max_iter,
@@ -317,17 +465,53 @@ def test_seq_qc_kernel_equals_plain(cuda_device, kind, code, B, max_iter,
     for H in (np.asarray(code_.Hz) % 2, np.asarray(code_.Hx) % 2):
         dec = _seq_decoder(H, cuda_device, max_iter, kind)
         syn_T = _syndromes(12, H, B, p_err, cuda_device).T.contiguous()
-        syn_T[:, 0] = 0.0           # a zero syndrome: one row, n_iter == 1
+        if B > 1:
+            syn_T[:, 0] = 0.0       # a zero syndrome: one row, n_iter == 1
         lch = ms_qc_cuda.llr_prior(np.float32(0.07) / np.float32(3.0))
         before = dict(seq_qc_cuda.LAUNCHES)
         kp, ki, kc = seq_qc_cuda.seq_qc(dec, syn_T, lch)
         pp, pi, pc = seq_qc_cuda.seq_qc_plain(dec, syn_T, lch)
         assert seq_qc_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
-        assert int(ki[0]) == 1 and bool(kc[0]) and not (kp[:, 0] < 0).any()
-        assert kc.any() and ki.max() > 1
+        if B > 1:
+            assert int(ki[0]) == 1 and bool(kc[0])
+            assert not (kp[:, 0] < 0).any()
+        if p_err == 0.0:
+            assert (ki == 1).all() and kc.all()
+        elif p_err == 0.2:
+            assert (ki == max_iter).sum() > B // 2
+        elif B > 1:
+            assert kc.any() and ki.max() > 1
         assert torch.equal(ki, pi) and torch.equal(kc, pc)
         assert torch.equal(kp < 0, pp < 0)
         assert torch.equal(kp, pp)
+        # the block-row formulation in plain PyTorch gives the same
+        bp_, bi, bc = seq_qc_cuda.seq_qc_plain_blockrow(dec, syn_T, lch)
+        assert torch.equal(bi, pi) and torch.equal(bc, pc)
+        assert torch.equal(bp_, pp)
+        # the variant with the shots' state in device memory, forced
+        dec.state_on_device = True
+        gp, gi, gc = seq_qc_cuda.seq_qc(dec, syn_T, lch)
+        assert torch.equal(gi, pi) and torch.equal(gc, pc)
+        assert torch.equal(gp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("name", ["irregular", "deg12"])
+def test_seq_qc_kernel_synthetic_lifts_equal_plain(cuda_device, kind, name):
+    """Kernel D on lifted codes with a non-uniform degree and with a degree
+    above 8."""
+    st = _synthetic_lift(name)
+    H = st.lift()
+    dec = seq_qc_cuda.make_seq_qc_decoder(
+        st, DecoderConfig(dec_type=kind, max_iter=12, schedule="S"),
+        device=cuda_device, kind=kind)
+    syn_T = _syndromes(4, H, 200, 0.04, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.04) / np.float32(3.0))
+    kp, ki, kc = seq_qc_cuda.seq_qc(dec, syn_T, lch)
+    pp, pi, pc = seq_qc_cuda.seq_qc_plain(dec, syn_T, lch)
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp, pp) and len(torch.unique(ki)) >= 2
 
 
 @pytest.mark.cuda
@@ -410,11 +594,14 @@ def test_small_codes_on_card_equal_cpu(cuda_device, code, kw):
 def test_unwritable_build_dir_raises_on_cuda_tensor(cuda_device, monkeypatch,
                                                     tmp_path):
     """A CUDA tensor launches the kernel or raises: with nowhere to build
-    the kernel, the wrapper raises and does not fall back to the plain
+    the kernel (neither the default directory nor the per-user cache can be
+    created), the wrapper raises and does not fall back to the plain
     version."""
     blocked = tmp_path / "file"
     blocked.write_text("not a directory")
     monkeypatch.setattr(_build, "BUILD_DIR", blocked / "build")
+    monkeypatch.delenv(_build.BUILD_DIR_ENV, raising=False)
+    monkeypatch.setenv("HOME", str(blocked / "home"))
     monkeypatch.setattr(_build, "_LIBS", {})
     H = np.asarray(get_code("lp04_0").Hz) % 2
     dec = _seq_decoder(H, cuda_device, 4)

@@ -588,6 +588,46 @@ def test_changed_run_misses_the_checkpoint(tmp_path, change):
     assert _counters(res) == _counters(fresh)
 
 
+def test_kernel_choice_is_part_of_the_checkpoint_identity(tmp_path,
+                                                          monkeypatch):
+    """Whether flooding runs on the per-slot or the slot-stacked kernel is
+    read from the environment when the decoder is built, and the two give
+    different counters; so the choice is part of the checkpoint's identity,
+    and a run resumed under the other choice starts afresh instead of
+    adding its chunks to the other stream's counts."""
+    c = get_code("lp04_0")
+    cfg = _ckpt_cfg(tmp_path, shots=192, dec_schedule="F")
+    monkeypatch.delenv("QLDPC_QC_STACKED", raising=False)
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    monkeypatch.setenv("QLDPC_QC_STACKED", "1")
+    pipe_f = ShotPipeline(c.Hx, c.Hz, cfg)
+    assert not pipe.dec_x.decs[0].stacked and pipe_f.dec_x.decs[0].stacked
+    assert _ckpt_id(pipe, cfg, 9, 0.07, 0) != _ckpt_id(pipe_f, cfg, 9,
+                                                       0.07, 0)
+    # a finished run under the per-slot kernel leaves its checkpoint
+    monkeypatch.delenv("QLDPC_QC_STACKED")
+    first = simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    chunks = []
+    real_body = ShotPipeline._chunk_body
+
+    def counting_body(self, keys, p, n_valid):
+        chunks.append(n_valid)
+        return real_body(self, keys, p, n_valid)
+
+    monkeypatch.setattr(ShotPipeline, "_chunk_body", counting_body)
+    # the same run again answers from it without decoding
+    again = simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert chunks == [] and _counters(again) == _counters(first)
+    # under the other kernel the run decodes every chunk anew
+    monkeypatch.setenv("QLDPC_QC_STACKED", "1")
+    other = simulate_p(c.Hx, c.Hz, 0.07, cfg)
+    assert len(chunks) == 3 and len(list(tmp_path.glob("*.json"))) == 2
+    fresh = simulate_p(c.Hx, c.Hz, 0.07, dataclasses.replace(
+        cfg, checkpoint_dir=None))
+    assert _counters(other) == _counters(fresh)
+
+
 # --- codes with no circulant lift: configs 1-3 at a small size, and a
 # column-permuted lp04_0 through the general-H decoder --------------------
 

@@ -207,3 +207,46 @@ def test_column_view_and_kernel_limits():
                                      stacked=True)
     with pytest.raises(ValueError, match="float32"):
         flood_qc_cuda.flood_qc_cuda(dec, torch.zeros((4, t.m)).double(), 1.0)
+
+
+@pytest.mark.parametrize("limit", ["degree", "shared memory"])
+def test_code_beyond_kernel_f_limits_goes_to_the_per_slot_kernel(limit):
+    """Kernel F is built for block-row degrees up to 16 and needs a shot's
+    state within a block's shared memory. Both limits are tested where the
+    kernel is selected, on every device: a lifted code beyond either one
+    decodes through the per-slot kernel, as a non-uniform one does, and on
+    the CPU gives what a decoder built without the opt-in gives."""
+    if limit == "degree":
+        L, m_b, n_b, deg = 4, 2, 20, 17
+    else:
+        L, m_b, n_b, deg = 128, 27, 8, 8
+    shifts = np.full((m_b, n_b), -1)
+    for i in range(m_b):
+        shifts[i, [(3 * i + t) % n_b for t in range(deg)]] = [
+            (i + 2 * t) % L for t in range(deg)]
+    st = QCStructure(L=L, shifts=shifts)
+    cfg = DecoderConfig(dec_type="MS", max_iter=4, schedule="F")
+    asked = ms_qc_cuda.make_qc_decoder(st, cfg, stacked=True)
+    plain = ms_qc_cuda.make_qc_decoder(st, cfg, stacked=False)
+    assert flood_qc_cuda.uniform_degree(st) == deg
+    if limit == "degree":
+        assert deg > flood_qc_cuda._KERNEL_MAX_DEG
+        assert flood_qc_cuda.smem_bytes(asked.tabs) <= flood_qc_cuda._MAX_SMEM
+    else:
+        assert deg <= flood_qc_cuda._KERNEL_MAX_DEG
+        assert flood_qc_cuda.smem_bytes(asked.tabs) > flood_qc_cuda._MAX_SMEM
+        # kernel B keeps such a shot's state in device memory
+        assert asked.state_on_device
+    assert not flood_qc_cuda.supports(st, asked.tabs)
+    assert asked.stacked is False and not hasattr(asked, "flood_gidx")
+    syn = _syndromes(3, asked.H.numpy().astype(np.int64), 6, 0.01)
+    syn[0] = 0
+    p = np.float32(0.03) / np.float32(3.0)
+    a, b = asked(torch.from_numpy(syn), p), plain(torch.from_numpy(syn), p)
+    assert torch.equal(a.posterior, b.posterior)
+    assert torch.equal(a.n_iter, b.n_iter) and bool(a.converged[0])
+    assert syn[1:].any() and (a.posterior[1:] != a.posterior[0]).any()
+    # within both limits the opt-in is taken
+    assert ms_qc_cuda.make_qc_decoder(
+        detect_qc(np.asarray(get_code("lp04_0").Hz) % 2), cfg,
+        stacked=True).stacked

@@ -194,3 +194,26 @@ def test_unsupported_options_raise():
     with pytest.raises(ValueError):
         ms_qc_cuda.make_qc_decoder(st, DecoderConfig(schedule="S"))
 
+
+
+@pytest.mark.parametrize("code,sched,per_edge,threads", [
+    ("lp118_0", "L", True, 256),   # groups of 16 or 32 rows, 128 or 256 edges
+    ("lp118_0", "F", False, 256),  # one group of 240 rows
+    ("tanner", "L", True, 256),    # groups of 31 or 62 rows
+    ("tanner", "F", False, 256),   # one group of 465 rows
+    ("lp04_0", "L", True, 128),    # groups of 7 or 14 rows, 8 lanes each
+    ("lp04_0", "F", False, 96),    # one group of 84 rows
+])
+def test_kernel_mapping_is_fixed_by_the_tables(code, sched, per_edge,
+                                               threads):
+    """How the kernel will run is decided when the decoder is built, on
+    every device: a thread per edge where the largest layer group's edges
+    fit two passes of 256 threads, else a thread per check row; a block of
+    whole warps per shot; the state in shared memory on the library codes."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = ms_qc_cuda.make_qc_decoder(
+        detect_qc(H), DecoderConfig(dec_type="MS", schedule=sched),
+        layers=build_layers(H, sched))
+    assert (dec.per_edge, dec.threads) == (per_edge, threads)
+    assert dec.threads % 32 == 0 and not dec.state_on_device
+    assert 4 * (dec.table_words + dec.state_words) <= ms_qc_cuda.MAX_SMEM

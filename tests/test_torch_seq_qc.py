@@ -34,6 +34,7 @@ from qldpcsim_torch.convert import seq_qc_tables_from_reference
 from qldpcsim_torch.decoders import DecoderConfig, build_layers
 from qldpcsim_torch.decoders.common import LayerSchedule
 from qldpcsim_torch.ops import seq_qc_cuda
+from qldpcsim_torch.ops.ms_qc_cuda import llr_prior
 from qldpcsim_torch.ops.qc import detect_qc
 
 PRIOR = np.float32(0.05) / np.float32(3.0)
@@ -102,6 +103,28 @@ def test_ms_plain_equals_pallas_interpret(code, max_iter, n_shots, p_err):
     # the case decodes: several iteration counts, not all shots at the cap
     assert len(np.unique(o.n_iter.numpy())) >= 3
     assert o.converged.any()
+
+
+@pytest.mark.parametrize("code,max_iter,n_shots,p_err", [
+    ("lp04_0", 6, 32, 0.03),
+    ("lp04_0", 30, 32, 0.03),
+    ("tanner", 3, 32, 0.02),
+])
+def test_ms_blockrow_equals_pallas_interpret(code, max_iter, n_shots, p_err):
+    """The block-row formulation (the algorithm of kernel D in plain
+    PyTorch) against the Pallas kernel itself, not through the row-by-row
+    plain version: n_iter and converged equal, the posterior by value."""
+    H, ref, port = _both(code, "MS", max_iter)
+    syn = _syndromes(5, H, n_shots, p_err)
+    r = ref(syn, PRIOR)
+    syn_T = torch.from_numpy(syn).to(torch.float32).T.contiguous()
+    post, n_iter, conv = seq_qc_cuda.seq_qc_plain_blockrow(
+        port, syn_T, llr_prior(PRIOR))
+    assert np.array_equal(np.asarray(r.n_iter), n_iter.numpy())
+    assert np.array_equal(np.asarray(r.converged), conv.numpy())
+    assert (np.asarray(r.posterior) == post.T.numpy()).all()
+    assert np.array_equal(np.asarray(r.e_hat), (post.T < 0).numpy())
+    assert conv.any() and len(np.unique(n_iter.numpy())) >= 3
 
 
 # (code, max_iter): measured agreement of converged, n_iter and e_hat, and
@@ -225,12 +248,16 @@ def test_tables_from_reference_structure(code):
 
 
 def test_scratch_is_kept_and_grown():
+    """The device-memory variant's state (a code whose per-shot state
+    exceeds a block's shared memory) lives in scratch kept on the decoder;
+    the library codes keep their state in shared memory."""
     H = np.asarray(get_code("lp04_0").Hz) % 2
     dec = seq_qc_cuda.make_seq_qc_decoder(detect_qc(H), DecoderConfig())
-    c1, m1 = dec.scratch(64, torch.device("cpu"))
-    c2, m2 = dec.scratch(32, torch.device("cpu"))
-    assert c1.shape == (int(H.sum()), 64) and m1.shape == (H.shape[0], 64)
-    assert c2.data_ptr() == c1.data_ptr() and m2.data_ptr() == m1.data_ptr()
-    c3, _ = dec.scratch(128, torch.device("cpu"))
-    assert c3.shape == (int(H.sum()), 128)
-    assert m1.dtype == torch.uint8 and c1.dtype == torch.float32
+    words = H.shape[1] + int(H.sum()) + 2 * (-(-H.shape[0] // 4))
+    assert dec.state_words == words and not dec.state_on_device
+    s1 = dec.scratch(64, torch.device("cpu"))
+    s2 = dec.scratch(32, torch.device("cpu"))
+    assert s1.shape == (64, words) and s2.shape == (32, words)
+    assert s2.data_ptr() == s1.data_ptr()
+    s3 = dec.scratch(128, torch.device("cpu"))
+    assert s3.shape == (128, words) and s3.dtype == torch.float32
