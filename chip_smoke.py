@@ -79,20 +79,26 @@ Phases (any failure raises and exits non-zero):
      its plain version on the card, on matrices with no circulant lift:
      lp118_0 with one seeded column permutation on both sides (the
      flagship's code up to a relabelling of qubits), side X, syndromes from
-     the port's channel at p = 0.05, layered and flooding, 4096 shots at the
-     cascade head's 4 iterations and a 128-shot tail window at the full 50;
-     bicycle (73 one-row layers, row weight 18) and a seeded row-irregular
-     240 x 544 matrix (row weights 3 to 8), layered, 4096 shots at 4
-     iterations; n_iter, converged and e_hat equal, the posterior equal by
-     value; the kernel alone is also timed at 4096 shots and 50 iterations,
-     and a lone thread per iteration;
+     the port's channel at p = 0.05, layered and flooding, at the cascade's
+     shapes (4096 shots at 4 iterations, the head's unconverged shots, at
+     most 512, at 10, a 128-shot tail window at the full 50), the full depth (4096 at 50) and a lone shot's
+     microseconds per iteration; bicycle (73 one-row layers, row weight 18)
+     and a seeded row-irregular 240 x 544 matrix (row weights 3 to 8),
+     layered, 4096 shots at 4 iterations; zero syndromes and p = 0.2; every
+     shape under the mapping the tables choose and the other one (a thread
+     per edge, a thread per check row), each with the state in shared and
+     in device memory, timed, and n_iter, converged and e_hat equal to the
+     plain version's and the posterior equal by value;
  16. kernel E, kind BP: the same comparison;
  17. the non-QC main path: `simulate_p` on the permuted lp118_0 (min-sum,
      layered, 50 iterations, p = 0.05, 4096-shot chunks, 65,536 shots,
      impl "auto") on the card, with its launch counts (kernel E, neither QC
-     kernel) and a CUDA-event breakdown of a chunk; its qBLER within 4 sigma
-     of the flagship's from phase 7; `simulate` on the same matrices as .npy
-     files; and the same path with BP forced onto kernel E on 2 chunks;
+     kernel); its qBLER within 4 sigma of the flagship's from phase 7; a
+     timed run of 1,048,576 shots (a warm window of about a second); a
+     CUDA-event breakdown of a chunk into channel, decode X, decode Z and
+     classify, with each side's cascade stages; `simulate` on the same
+     matrices as .npy files; and the same path with BP forced onto kernel E
+     on 2 chunks;
  18. the non-QC main path's first two chunks on the CPU (plain version)
      against the card: all 9 counters equal;
  19. the incidence decoders on the same shape: one side of the permuted
@@ -212,8 +218,9 @@ OPS_DRAW = 84  # threefry2x32, 20 rounds, and the threshold compares
 # the timed runs: enough shots for a warm window of a second or more
 TIMED_SHOTS = 256 * BATCH          # the flagship and config 5
 C4_TIMED_SHOTS = [256 * BATCH, 128 * BATCH, 64 * BATCH, 32 * BATCH]  # per p
-# kernels B and D with one thread per shot and the state in device memory,
-# as measured before their redesign (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+# kernels B, D and E with one thread per shot and the state in device
+# memory, as measured before their redesign (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md)
 OLD = {
     "B MS L 4096x50 ms": 31.759, "B BP F 4096x99 ms": 91.677,
     "B MS lone us/it": 289.2, "B BP lone us/it": 563.7,
@@ -222,6 +229,13 @@ OLD = {
     "D BP lone us/it": 1017.7,
     "flagship shots/s": 47523.4, "config 5 shots/s": 17328.2,
     "config 4 shots/s": [249639.1, 35319.2, 11804.8, 4749.5],
+    # kernel E with one thread per shot and the state in device memory
+    "E MS L 4096x4 ms": "5.2359 ms", "E MS F 4096x4 ms": "not recorded",
+    "E BP L 4096x4 ms": "6.2801 ms", "E BP F 4096x4 ms": "not recorded",
+    "E MS L 4096x50 ms": "44.106 ms", "E MS F 4096x50 ms": "72.266 ms",
+    "E BP L 4096x50 ms": "not recorded", "E BP F 4096x50 ms": "not recorded",
+    "E MS lone us/it": 427.2, "E BP lone us/it": 738.6,
+    "non-QC shots/s": 34668.0,
 }
 
 
@@ -283,9 +297,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0):
+def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0,
+              stages=False):
     """Mean CUDA-event milliseconds of the spans of a chunk over `chunks`
-    chunks of the key branch `p_index` (not part of any launch count)."""
+    chunks of the key branch `p_index` (not part of any launch count); with
+    `stages`, also each cascade stage's decoder calls per side (the launch
+    and the transposes around it)."""
     import numpy as np
     import torch
 
@@ -298,6 +315,23 @@ def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0):
     prior = np.float32(p) / np.float32(3.0)
     spans = np.zeros(len(names))
     valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    pending, stage_ms, wrapped = [], {}, []
+    if stages:
+        for side, casc in (("X", pipe.dec_x), ("Z", pipe.dec_z)):
+            for i, d in enumerate(casc.decs):
+                stage_ms[(side, i)] = [0.0, 0]
+
+                def timed(*args, _f=d.forward, _k=(side, i)):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    r = _f(*args)
+                    e1.record()
+                    pending.append((_k, e0, e1))
+                    return r
+
+                d.forward = timed
+                wrapped.append(d)
     for ci in range(chunks):
         ev = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(names) + 1)]
@@ -321,13 +355,28 @@ def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0):
         ev[-1].record()
         ev[-1].synchronize()
         spans += [ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
+        for k, e0, e1 in pending:
+            stage_ms[k][0] += e0.elapsed_time(e1)
+            stage_ms[k][1] += 1
+        pending.clear()
         check(int(counts["decSuccessExact"]) <= BATCH, "breakdown counts")
+    for d in wrapped:
+        del d.forward
     spans /= chunks
     total = spans.sum()
     parts = ", ".join(f"{nm} {s:.4f} ({100 * s / total:.1f}%)"
                       for nm, s in zip(names, spans))
     print(f"  chunk breakdown (CUDA events, mean of {chunks} "
           f"chunks, ms): {parts}, total {total:.4f}  [{smi}]")
+    if stages:
+        for side in ("X", "Z"):
+            casc = pipe.dec_x if side == "X" else pipe.dec_z
+            print(f"  cascade stages, side {side} (iterations, window): ms "
+                  f"per chunk and calls per chunk: " + ", ".join(
+                      f"{casc.stages[i]} {v[0] / chunks:.4f} ms, "
+                      f"{v[1] / chunks:.2f} calls"
+                      for (sd, i), v in stage_ms.items() if sd == side)
+                  + f"  [{smi}]")
 
 
 def main():
@@ -787,7 +836,7 @@ def main():
                        pipeline=pipe_, p_index=p_index)
         print(f"  timed run, {label}: {shots_} shots, warm {r.warm_shots} "
               f"shots in {r.warm_time_s:.3f} s = {r.shots_per_s_warm:.1f} "
-              f"shots/s (before the redesign of kernels B and D: {old}); "
+              f"shots/s (before the redesign of its decode kernel: {old}); "
               f"qBLER {r.qbler!r}  [{smi}]")
         check(r.shots == shots_ and 0.0 <= r.qbler <= 1.0,
               f"timed run {label}")
@@ -1188,56 +1237,119 @@ def main():
               f"{int(ki.sum())}, {nbytes(syn_T, kp, ki, kc)} bytes)  [{smi}]")
         return k_ms, p_ms, err, same, bnd
 
+    def gh_variants(dec):
+        """Kernel E's variants on one decoder, the tables' choice first:
+        both mappings (a thread per edge only for rows of at most 32 slots),
+        each with the state in shared memory (where it fits) and in device
+        memory. [(name, per_edge, state_on_device), ...]"""
+        chosen = (dec.per_edge, dec.state_on_device)
+        maps = ((chosen[0], not chosen[0]) if dec.tabs.dmax <= 32
+                else (False,))
+        places = (chosen[1], not chosen[1]) if not chosen[1] else (True,)
+        return [(f"{mapping_name(pe, dec.threads)} "
+                 f"{'device' if od else 'shared'}", pe, od)
+                for od in places for pe in maps]
+
+    def gh_all_variants(label, dec, syn_T, reps, plain=None, lone=False):
+        """Kernel E under every variant of `gh_variants` against its plain
+        version (n_iter, converged, posterior by value), each timed: ms per
+        launch, or with `lone` microseconds per iteration of a one-shot
+        launch. Returns {variant: time}, the tables' choice first."""
+        pp, pi, pc = plain or general_h_cuda.general_h_plain(dec, syn_T, lch)
+        chosen = (dec.per_edge, dec.state_on_device)
+        out = {}
+        for name, per_edge, on_device in gh_variants(dec):
+            dec.per_edge, dec.state_on_device = per_edge, on_device
+            kp, ki, kc = general_h_cuda.general_h_cuda(dec, syn_T, lch)
+            torch.cuda.synchronize()
+            same = (torch.equal(ki, pi) and torch.equal(kc, pc)
+                    and torch.equal(kp, pp))
+            check(same, f"kernel E {dec.kind} == plain: {label}, {name}")
+            ms = cuda_ms(lambda: general_h_cuda.general_h_cuda(
+                dec, syn_T, lch), reps)
+            out[name] = 1e3 * ms / int(ki[0]) if lone else ms
+        dec.per_edge, dec.state_on_device = chosen
+        unit = "us per iteration" if lone else "ms"
+        print(f"  {label} (B={syn_T.shape[1]}, {dec.max_iter} it, "
+              f"{dec.smem_bytes} B of shared memory per block, tables in "
+              f"{'shared' if dec.tables_in_shared else 'device'} memory), "
+              f"{unit}, equal to plain under every variant, the tables' "
+              f"choice first: "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in out.items())
+              + f"  [{smi}]")
+        return out
+
     syn_perm = syn_of(Pz, P_POINT)
     syn_bic = syn_of(Bz, GH_BICYCLE_P)
     syn_irr = syn_of(Irr, 0.017)
     e_times, worst_e = {}, {}
     for number, kind_ in ((15, "MS"), (16, "BP")):
         phase(f"{number} kernel E, kind {kind_}")
-        print(f"depth chosen: B={BATCH} at {GH_HEAD_ITER} iterations, "
-              f"B={GH_TAIL_SHOTS} at {MAX_ITER} iterations on the permuted "
-              f"{CODE}; kernel alone at B={BATCH} and {MAX_ITER} iterations")
+        print(f"depth chosen: the cascade's stages on the permuted {CODE} "
+              f"(B={BATCH} at {GH_HEAD_ITER} iterations, the head's "
+              f"unconverged shots up to 512 at 10, "
+              f"{GH_TAIL_SHOTS} at {MAX_ITER}), the kernel alone at "
+              f"B={BATCH} and {MAX_ITER} iterations, a lone shot")
         worst_e[kind_] = 0.0
         for sched in (SCHEDULE, "F"):
+            head = gh_decoder(Pz, kind_, GH_HEAD_ITER, sched)
             out = compare_gh(f"general_h {kind_} {sched} permuted {CODE} "
-                             f"side X p={P_POINT}", Pz,
-                             gh_decoder(Pz, kind_, GH_HEAD_ITER, sched),
-                             syn_perm, 5)
+                             f"side X p={P_POINT}", Pz, head, syn_perm, 5)
             worst_e[kind_] = max(worst_e[kind_], out[2])
             e_times[(kind_, sched)] = out
             check(out[3], f"kernel E {kind_} == plain ({sched}, head)")
-            # the tail window: shots the head left unconverged, full depth
-            kc = general_h_cuda.general_h_cuda(
-                gh_decoder(Pz, kind_, GH_HEAD_ITER, sched), syn_perm, lch)[2]
-            tail = torch.nonzero(~kc).flatten()[:GH_TAIL_SHOTS]
-            check(tail.numel() == GH_TAIL_SHOTS,
-                  "the head left a tail window")
+            print(f"  tables' choice: {mapping_name(head.per_edge, head.threads)}"
+                  f", state in {'device' if head.state_on_device else 'shared'}"
+                  f" memory (before the redesign: "
+                  f"{OLD[f'E {kind_} {sched} 4096x4 ms']})")
+            gh_all_variants(f"general_h {kind_} {sched} cascade head", head,
+                            syn_perm, 5)
+            # the later stages: shots the head left unconverged
+            kc = general_h_cuda.general_h_cuda(head, syn_perm, lch)[2]
+            left = torch.nonzero(~kc).flatten()
+            check(left.numel() >= GH_TAIL_SHOTS, "the head left a tail window")
+            tail = left[:GH_TAIL_SHOTS]
             deep = gh_decoder(Pz, kind_, MAX_ITER, sched)
-            out = compare_gh(f"general_h {kind_} {sched} tail window", Pz,
-                             deep, syn_perm[:, tail].contiguous(), 3)
-            worst_e[kind_] = max(worst_e[kind_], out[2])
-            e_times[(kind_, sched, "tail")] = out
-            check(out[3], f"kernel E {kind_} == plain ({sched}, tail window)")
-            full_ms = cuda_ms(lambda: general_h_cuda.general_h_cuda(
-                deep, syn_perm, lch), 3)
+            if sched == SCHEDULE:
+                gh_all_variants(f"general_h {kind_} {sched} second stage",
+                                gh_decoder(Pz, kind_, 10, sched),
+                                syn_perm[:, left[:512]].contiguous(), 5)
+            gh_all_variants(f"general_h {kind_} {sched} last stage", deep,
+                            syn_perm[:, tail].contiguous(), 5)
+            full = gh_all_variants(f"general_h {kind_} {sched} full depth",
+                                   deep, syn_perm, 2)
+            print(f"  full depth before the redesign: "
+                  f"{OLD[f'E {kind_} {sched} 4096x50 ms']}; now "
+                  f"{next(iter(full.values())):.4f} ms")
             ki = general_h_cuda.general_h_cuda(deep, syn_perm, lch)[1]
-            one = syn_perm[:, tail[:1]].contiguous()
-            lone_ms = cuda_ms(lambda: general_h_cuda.general_h_cuda(
-                deep, one, lch), 3)
-            lone_it = int(general_h_cuda.general_h_cuda(deep, one, lch)[1][0])
-            print(f"general_h {kind_} {sched}, kernel alone: B={BATCH} at "
-                  f"{MAX_ITER} it {full_ms:.3f} ms (mean n_iter "
-                  f"{float(ki.float().mean()):.4f}, at the cap "
-                  f"{int((ki == MAX_ITER).sum())}); a lone thread "
-                  f"{lone_ms:.3f} ms for {lone_it} iterations = "
-                  f"{lone_ms / lone_it:.4f} ms per iteration  [{smi}]")
+            slow = torch.nonzero(ki == MAX_ITER).flatten()
+            check(slow.numel() > 0, "a shot ran every iteration")
+            gh_all_variants(f"general_h {kind_} {sched} a lone shot of "
+                            f"{MAX_ITER} iterations (before the redesign, a "
+                            f"lone thread: {OLD[f'E {kind_} lone us/it']} "
+                            f"us per iteration)",
+                            deep, syn_perm[:, slow[:1]].contiguous(), 10,
+                            lone=True)
         for label, H, syn_T in (("bicycle", Bz, syn_bic),
                                 ("irregular 240x544", Irr, syn_irr)):
+            dec = gh_decoder(H, kind_, GH_HEAD_ITER, SCHEDULE)
             out = compare_gh(f"general_h {kind_} {SCHEDULE} {label}", H,
-                             gh_decoder(H, kind_, GH_HEAD_ITER, SCHEDULE),
-                             syn_T, 5)
+                             dec, syn_T, 5)
             worst_e[kind_] = max(worst_e[kind_], out[2])
             check(out[3], f"kernel E {kind_} == plain ({label})")
+            gh_all_variants(f"general_h {kind_} {SCHEDULE} {label}", dec,
+                            syn_T, 5)
+        # zero syndromes and p = 0.2 on the permuted code, both schedules
+        zdec = gh_decoder(Pz, kind_, MAX_ITER, SCHEDULE)
+        zero = torch.zeros_like(syn_perm[:, :64])
+        gh_all_variants(f"general_h {kind_} {SCHEDULE} zero syndromes", zdec,
+                        zero, 2)
+        zi = general_h_cuda.general_h_cuda(zdec, zero, lch)[1]
+        check(bool((zi == 1).all()), "a zero syndrome takes one iteration")
+        syn_hi = syn_of(Pz, 0.2)[:, :300].contiguous()
+        for sched in (SCHEDULE, "F"):
+            gh_all_variants(f"general_h {kind_} {sched} p=0.2",
+                            gh_decoder(Pz, kind_, 20, sched), syn_hi, 2)
 
     # 17. the non-QC main path
     phase("17 non-QC main path (permuted lp118_0, MS-L-50, p=0.05)")
@@ -1278,8 +1390,10 @@ def main():
           f"{abs(res.qbler - resE.qbler)!r} vs 4 sigma {4 * sigma!r}")
     check(abs(res.qbler - resE.qbler) <= 4 * sigma,
           "non-QC qBLER within 4 sigma of the flagship's")
+    timed_run("non-QC main path", Px, Pz, P_POINT, cfgE, pipeE, TIMED_SHOTS,
+              OLD["non-QC shots/s"])
     breakdown(pipeE, P_POINT, ("channel", "decode X", "decode Z", "classify"),
-              smi)
+              smi, stages=True)
     # the reference's input mode: the matrices as .npy files
     import tempfile
 

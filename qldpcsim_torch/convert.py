@@ -217,6 +217,18 @@ class GHTables:
         return [(int(a), int(b)) for a, b in zip(self.run_ptr[:-1],
                                                  self.run_ptr[1:])]
 
+    def col_edges(self):
+        """The column view of the edges: (col_ptr (n + 1,), col_edge (nnz,))
+        int32. Variable v is met by the edges col_edge[col_ptr[v] ..
+        col_ptr[v+1]-1], in ascending edge order; the edges of a layer
+        (rows a .. b-1) are those in [a * dmax, b * dmax)."""
+        flat = self.var_of.reshape(-1)
+        edges = np.nonzero(flat >= 0)[0]
+        order = np.argsort(flat[edges], kind="stable")
+        counts = np.bincount(flat[edges], minlength=self.n)
+        col_ptr = np.concatenate([[0], np.cumsum(counts)])
+        return col_ptr.astype(np.int32), edges[order].astype(np.int32)
+
     @staticmethod
     def build(var_of: np.ndarray, n: int, runs: Sequence[tuple]
               ) -> "GHTables":

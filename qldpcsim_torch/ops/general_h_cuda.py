@@ -43,10 +43,26 @@ share variables (the flooding schedule) the reference's product sums a
 variable's deltas in an order of its own; kernel and plain version sum them
 in ascending edge order from 0 and add the sum to the posterior.
 
-Shots never interact, so the kernel gives each shot its own thread, which
-leaves its loop at the iteration where it latches; the plain version runs
-all shots together and keeps a latched shot's messages, so that its deltas
-are 0, as the reference does.
+Shots never interact, so the kernel gives each shot a block of its own,
+keeps the shot's state (posterior, messages, syndrome signs and, when a
+layer's rows share a variable, that layer's deltas) in shared memory, runs
+the check rows of a layer side by side (a thread per edge or per check row;
+a shared layer sums its deltas per variable in a second phase, from the
+column table `GHTables.col_edges()`) and leaves the shot's loop at the
+iteration where it latches; the plain version runs all shots together and
+keeps a latched shot's messages, so that its deltas are 0, as the reference
+does.
+
+When the decoder is built, its tables decide how the kernel will run:
+`GHDecoder.per_edge` (a thread per edge, a row's slots on dmax rounded up to
+2..32 lanes, when the largest layer's edges fit two passes of 256 threads,
+as under a layered schedule; else, as under flooding or for rows of more
+than 32 slots, a thread per check row), `GHDecoder.threads` per shot (one
+per edge or row of that layer, in whole warps, up to 256) and
+`GHDecoder.state_on_device` (True when one shot's state exceeds a block's
+shared memory: the same kernel then keeps the state in device memory); the
+tables go into shared memory beside the state when they fit there
+(`GHDecoder.tables_in_shared`). Nothing is decided by a failed launch.
 
 `general_h` runs the kernel for CUDA tensors and the plain version for CPU
 tensors. `LAUNCHES[kind]` counts kernel launches.
@@ -73,20 +89,28 @@ from qldpcsim_torch.decoders.common import (
     TannerGraph,
 )
 from qldpcsim_torch.ops import _build
-from qldpcsim_torch.ops.ms_qc_cuda import KINDS, llr_prior
+from qldpcsim_torch.ops.ms_qc_cuda import KINDS, MAX_SMEM, llr_prior
 from qldpcsim_torch.ops.seq_qc_cuda import _two_smallest
 
 LAUNCHES = {kind: 0 for kind in KINDS}
 
 _BIG = 1e30  # stand-in for +inf in the min reductions, as in the reference
+_EDGE_MAX_DEG = 32  # widest row a thread-per-edge block takes (one warp)
+# the C signature of general_h_decode: syn, B, kind; lch, beta, clamp;
+# max_iter .. tables_in_shared; the ten device pointers and the stream
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_float] * 3 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p] * 10)
 
 
 def supports(H: np.ndarray, layers: Optional[LayerSchedule]) -> bool:
     """Shape and schedule gate of the general-H decoder: contiguous layers
     and at least one edge. The reference also bounds the size of its
-    incidence matrices by the TPU's fast memory; the port builds none, and
-    keeps its state, (m * dmax + 2 n) float32 per shot, in device memory, so
-    it sets no bound: a batch whose state does not fit fails to allocate."""
+    incidence matrices by the TPU's fast memory; the port builds none and
+    sets no bound: a shot's state, (n + m * dmax + m) float32 plus the
+    deltas of the largest layer whose rows share a variable, lies in shared
+    memory up to a block's 232,448 bytes and in device memory beyond, where
+    only a batch whose state does not fit the card fails to allocate."""
     H = np.asarray(H) % 2
     m = H.shape[0]
     if _contiguous_layer_runs(layers, m) is None:
@@ -161,7 +185,9 @@ def general_h_plain(dec: "GHDecoder", syn_T: torch.Tensor, lch: float):
 
 
 def general_h_cuda(dec: "GHDecoder", syn_T: torch.Tensor, lch: float):
-    """Kernel E: the contract of `general_h_plain`, on the card."""
+    """Kernel E: the contract of `general_h_plain`, on the card. The
+    posterior comes back as the (n, B) transpose of a shot-major (B, n)
+    tensor."""
     tabs = dec.tabs
     if syn_T.dtype != torch.float32 or syn_T.dim() != 2 \
             or syn_T.shape[0] != tabs.m or not syn_T.is_contiguous():
@@ -170,29 +196,34 @@ def general_h_cuda(dec: "GHDecoder", syn_T: torch.Tensor, lch: float):
     if dec.var_of.device != syn_T.device:
         raise ValueError(f"decoder tables on {dec.var_of.device}, "
                          f"syndromes on {syn_T.device}")
+    if dec.per_edge and tabs.dmax > _EDGE_MAX_DEG:
+        raise ValueError(f"a thread per edge takes rows of at most "
+                         f"{_EDGE_MAX_DEG} slots, got dmax {tabs.dmax}")
     B = syn_T.shape[1]
     dev = syn_T.device
     lib = _build.load("general_h")
     fn = lib.general_h_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 9)
-    post = torch.empty((tabs.n, B), dtype=torch.float32, device=dev)
+    fn.argtypes = ARGTYPES
+    post = torch.empty((B, tabs.n), dtype=torch.float32, device=dev)
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
-    c2v, acc = dec.scratch(B, dev)
+    state = dec.scratch(B, dev) if dec.state_on_device else None
+    n_col = dec.col_edge.numel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn_T.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.m, tabs.n, tabs.dmax,
-            len(tabs.run_shared),
+            len(tabs.run_shared), n_col, dec.delta_edges, int(dec.per_edge),
+            dec.threads, int(dec.tables_in_shared),
             dec.var_of.data_ptr(), dec.run_ptr.data_ptr(),
-            dec.run_shared.data_ptr(), c2v.data_ptr(),
-            None if acc is None else acc.data_ptr(), post.data_ptr(),
+            dec.run_shared.data_ptr(),
+            dec.col_ptr.data_ptr() if n_col else None,
+            dec.col_edge.data_ptr() if n_col else None,
+            None if state is None else state.data_ptr(), post.data_ptr(),
             n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "general_h", rc)
     LAUNCHES[dec.kind] += 1
-    return post, n_iter, conv
+    return post.T, n_iter, conv
 
 
 def general_h(dec: "GHDecoder", syn_T: torch.Tensor, lch: float):
@@ -212,10 +243,14 @@ class GHDecoder(nn.Module):
     MS or BP, schedule F (one run of all rows, whatever `layers` says) or L.
 
     Static tables live as buffers on `device`; syndromes must lie on the
-    same device. Batches of any size decode as they are. The kernel's
-    message scratch, and the per-variable delta sums of layers whose rows
-    share variables, are allocated once per decoder and grown to the largest
-    batch seen.
+    same device. Batches of any size decode as they are.
+
+    For kernel E the tables also fix, here and not at launch, `per_edge` (a
+    thread per edge, else per check row), `threads` per shot and
+    `state_on_device` (the shot's state in device memory because it exceeds
+    a block's shared memory; set it to True to force that variant, whose
+    scratch is allocated once per decoder and grown to the largest batch
+    seen); `tables_in_shared` and `smem_bytes` follow from them.
     """
 
     def __init__(self, H: np.ndarray, cfg: DecoderConfig,
@@ -243,6 +278,29 @@ class GHDecoder(nn.Module):
         for name in ("var_of", "run_ptr", "run_shared"):
             self.register_buffer(name, torch.as_tensor(
                 getattr(t, name), dtype=torch.int32, device=device))
+        # kernel: the column table of the layers whose rows share a
+        # variable; how many threads a shot gets and where its state lives
+        shared = [b - a for (a, b), s in zip(t.runs, t.run_shared) if s]
+        col_ptr, col_edge = (t.col_edges() if shared else
+                             (np.zeros(0, np.int32), np.zeros(0, np.int32)))
+        for name, arr in (("col_ptr", col_ptr), ("col_edge", col_edge)):
+            self.register_buffer(name, torch.as_tensor(
+                arr, dtype=torch.int32, device=device))
+        self.delta_edges = max(shared, default=0) * t.dmax
+        self.state_words = t.n + t.n_edges + self.delta_edges + t.m
+        self.table_words = (t.n_edges + 2 * len(t.run_shared) + 1
+                            + (col_ptr.size + col_edge.size))
+        self.state_on_device = 4 * self.state_words > MAX_SMEM
+        # a thread per edge (a row's slots on dmax rounded up to a power of
+        # two of lanes) when the largest layer is done in two passes of 256
+        # threads, else (flooding over a large code, rows of more than 32
+        # slots) a thread per check row
+        rows = max(b - a for a, b in t.runs)
+        self.lanes = max(2, 1 << (t.dmax - 1).bit_length())
+        self.per_edge = (t.dmax <= _EDGE_MAX_DEG
+                         and rows * self.lanes <= 512)
+        work = rows * self.lanes if self.per_edge else rows
+        self.threads = min(256, -(-work // 32) * 32)
         # plain version: H for the per-iteration check and, per layer, the
         # gather index and pad mask of its edge block, the variables it
         # meets and each one's edges (offsets into the block; the block's
@@ -264,19 +322,30 @@ class GHDecoder(nn.Module):
                 self.register_buffer(nm, torch.as_tensor(
                     np.ascontiguousarray(arr), dtype=dt, device=device))
 
+    @property
+    def tables_in_shared(self) -> bool:
+        """The kernel copies its tables into shared memory when they fit
+        there beside the state (the state goes first: every edge update
+        reads and writes it); else every block reads them from device
+        memory, through the caches."""
+        state = 0 if self.state_on_device else self.state_words
+        return 4 * (state + self.table_words) <= MAX_SMEM
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one shot's block."""
+        return 4 * ((0 if self.state_on_device else self.state_words)
+                    + (self.table_words if self.tables_in_shared else 0))
+
     def scratch(self, B: int, device):
-        """The kernel's state for B shots: c2v (m * dmax, B) float32 and,
-        when a layer's rows share variables, the delta sums (n, B) float32
-        (else None): views of buffers kept on the decoder."""
-        t = self.tabs
-        need = (t.n_edges * B, t.n * B if t.run_shared.any() else 0)
+        """The kernel's state for B shots when it lives in device memory:
+        (B, state_words) float32, a view of a buffer kept on the decoder."""
+        need = B * self.state_words
         s = self._scratch
-        if s is None or s[0].device != device or s[0].numel() < need[0]:
-            s = tuple(torch.empty(k, dtype=torch.float32, device=device)
-                      for k in need)
+        if s is None or s.device != device or s.numel() < need:
+            s = torch.empty(need, dtype=torch.float32, device=device)
             self._scratch = s
-        return (s[0][:need[0]].view(t.n_edges, B),
-                s[1][:need[1]].view(t.n, B) if need[1] else None)
+        return s[:need].view(B, self.state_words)
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         syn_T = syndromes.to(torch.float32).T.contiguous()

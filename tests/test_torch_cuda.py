@@ -111,18 +111,25 @@ def _assert_b_equals_plain(dec, syn_T, lch):
 def _general_matrix(name):
     """Matrices with no circulant lift: lp118_0's Hz with its columns
     permuted (240 x 544, row weight 8), bicycle's Hz (73 x 146, row weight
-    18, one-row layers), and a random 240 x 544 matrix of row weights 3 to
-    8."""
+    18, one-row layers), Steane's Hz (3 x 7), a random 240 x 544 matrix of
+    row weights 3 to 8, one of 12 x 200 with rows of 33 to 40 slots
+    (`wide`: a thread per check row only), and one of 3000 x 6000 with rows
+    of 18 to 20 slots whose per-shot state exceeds a block's shared memory
+    (`oversize`)."""
     if name == "lp118_perm":
         perm = np.random.default_rng(118).permutation(544)
         H = (np.asarray(get_code("lp118_0").Hz) % 2)[:, perm]
-    elif name == "bicycle":
-        H = np.asarray(get_code("bicycle").Hz) % 2
+    elif name in ("bicycle", "steane"):
+        H = np.asarray(get_code(name).Hz) % 2
     else:
-        rng = np.random.default_rng(7)
-        H = np.zeros((240, 544), np.int8)
-        for i in range(240):
-            H[i, rng.choice(544, int(rng.integers(3, 9)), replace=False)] = 1
+        m, n, lo, hi, seed = {"irregular": (240, 544, 3, 8, 7),
+                              "wide": (12, 200, 33, 40, 3),
+                              "oversize": (3000, 6000, 18, 20, 5)}[name]
+        rng = np.random.default_rng(seed)
+        H = np.zeros((m, n), np.int8)
+        for i in range(m):
+            H[i, rng.choice(n, int(rng.integers(lo, hi + 1)),
+                            replace=False)] = 1
     assert detect_qc(H) is None
     return H.astype(np.int8)
 
@@ -514,18 +521,50 @@ def test_seq_qc_kernel_synthetic_lifts_equal_plain(cuda_device, kind, name):
     assert torch.equal(kp, pp) and len(torch.unique(ki)) >= 2
 
 
+def _assert_e_equals_plain(dec, syn_T, lch):
+    """Kernel E against its plain version under both mappings (where the
+    rows fit a thread per edge) and with the state in shared and in device
+    memory: n_iter and converged equal, the posterior equal by value on
+    every element (tolerance 0; == takes -0.0 and 0.0 as equal). Returns the
+    kernel's (posterior, n_iter, converged) under the tables' choices."""
+    pp, pi, pc = general_h_cuda.general_h_plain(dec, syn_T, lch)
+    chosen = (dec.per_edge, dec.state_on_device)
+    # a state beyond shared memory has one place; rows of more than 32
+    # slots one mapping
+    places = (True,) if chosen[1] else (False, True)
+    mappings = (chosen[0], not chosen[0]) if dec.tabs.dmax <= 32 else (False,)
+    out = None
+    for on_device in places:
+        for per_edge in mappings:
+            dec.state_on_device, dec.per_edge = on_device, per_edge
+            before = dict(general_h_cuda.LAUNCHES)
+            kp, ki, kc = general_h_cuda.general_h(dec, syn_T, lch)
+            torch.cuda.synchronize()
+            assert general_h_cuda.LAUNCHES == dict(
+                before, **{dec.kind: before[dec.kind] + 1})
+            what = (per_edge, on_device)
+            assert torch.equal(ki, pi) and torch.equal(kc, pc), what
+            assert torch.equal(kp < 0, pp < 0), what
+            assert torch.equal(kp, pp), what
+            if (per_edge, on_device) == chosen:
+                out = (kp, ki, kc)
+    dec.per_edge, dec.state_on_device = chosen
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,max_iter", [(1, 20), (63, 20), (4096, 4)])
-@pytest.mark.parametrize("name", ["lp118_perm", "bicycle", "irregular"])
+@pytest.mark.parametrize("B,max_iter", [(1, 20), (33, 20), (4096, 4)])
+@pytest.mark.parametrize("name", ["lp118_perm", "bicycle", "irregular",
+                                  "steane", "wide"])
 @pytest.mark.parametrize("sched", ["L", "F"])
 @pytest.mark.parametrize("kind", ["MS", "BP"])
 def test_general_h_kernel_equals_plain(cuda_device, kind, sched, name, B,
                                        max_iter):
-    """Kernel E against its plain version: n_iter and converged equal, and
-    the posterior equal by value on every element (tolerance 0): under L
-    each posterior entry takes one delta per layer, under F both sum a
-    variable's deltas in ascending edge order; BP through the CUDA math
-    library's tanhf and logf on both sides."""
+    """Kernel E against its plain version, tolerance 0, under both
+    mappings and both places of the state: under L each posterior entry
+    takes one delta per layer, under F both sum a variable's deltas in
+    ascending edge order from 0; BP through the CUDA math library's tanhf
+    and logf on both sides. The first shot has a zero syndrome."""
     H = _general_matrix(name)
     dec = _gh_decoder(H, sched, cuda_device, max_iter, kind)
     syn_T = _syndromes(3, H, B, 0.01 if name == "bicycle" else 0.017,
@@ -533,16 +572,47 @@ def test_general_h_kernel_equals_plain(cuda_device, kind, sched, name, B,
     if B > 1:
         syn_T[:, 0] = 0.0           # a zero syndrome: one iteration
     lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
-    before = dict(general_h_cuda.LAUNCHES)
-    kp, ki, kc = general_h_cuda.general_h(dec, syn_T, lch)
-    pp, pi, pc = general_h_cuda.general_h_plain(dec, syn_T, lch)
-    assert general_h_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
+    kp, ki, kc = _assert_e_equals_plain(dec, syn_T, lch)
     if B > 1:
         assert int(ki[0]) == 1 and bool(kc[0]) and not (kp[:, 0] < 0).any()
-        assert kc.any() and ki.max() > 1
-    assert torch.equal(ki, pi) and torch.equal(kc, pc)
-    assert torch.equal(kp < 0, pp < 0)
-    assert torch.equal(kp, pp)
+        assert kc.any() and (ki.max() > 1 or name == "steane")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("case", ["p0.2 L", "p0.2 F", "caller layers",
+                                  "oversize L", "oversize F"])
+def test_general_h_kernel_more_shapes_equal_plain(cuda_device, kind, case):
+    """Kernel E at p = 0.2 (most shots at the cap), under caller layers of
+    two rows whose rows share variables (a snapshot under L), and on a
+    matrix whose state the tables put in device memory (3000 x 6000, its
+    tables too large for shared memory as well): both mappings, tolerance
+    0."""
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    if case.startswith("p0.2"):
+        H = _general_matrix("lp118_perm")
+        dec = _gh_decoder(H, case[-1], cuda_device, 20, kind)
+        syn_T = _syndromes(5, H, 300, 0.2, cuda_device).T.contiguous()
+    elif case == "caller layers":
+        H = _general_matrix("irregular")
+        m = H.shape[0]
+        layers = LayerSchedule.from_layers(
+            [np.arange(i, i + 2) for i in range(0, m, 2)], m)
+        dec = general_h_cuda.make_gh_decoder(
+            H, DecoderConfig(dec_type=kind, max_iter=20, schedule="L"),
+            layers=layers, device=cuda_device, kind=kind)
+        assert 0 < int(dec.tabs.run_shared.sum()) < len(dec.tabs.runs)
+        syn_T = _syndromes(6, H, 200, 0.017, cuda_device).T.contiguous()
+    else:
+        H = _general_matrix("oversize")
+        dec = _gh_decoder(H, case[-1], cuda_device, 4, kind)
+        assert dec.state_on_device and not dec.tables_in_shared
+        syn_T = _syndromes(6, H, 8, 0.002, cuda_device).T.contiguous()
+    kp, ki, kc = _assert_e_equals_plain(dec, syn_T, lch)
+    if case.startswith("p0.2"):
+        assert (ki == dec.max_iter).float().mean() > 0.5 and not kc.all()
+    elif case == "caller layers":
+        assert len(torch.unique(ki)) >= 2
 
 
 @pytest.mark.cuda

@@ -299,18 +299,150 @@ def test_tables_from_reference_graph(name, sched):
 
 
 def test_scratch_is_kept_and_grown():
+    """The device-memory state of kernel E: (B, state_words) float32, one
+    buffer per decoder, grown to the largest batch seen."""
     H = _matrix("random")
     dec = general_h_cuda.make_gh_decoder(H, DecoderConfig(schedule="L"),
                                          layers=build_layers(H, "L"))
-    c1, a1 = dec.scratch(64, torch.device("cpu"))
-    c2, _ = dec.scratch(32, torch.device("cpu"))
-    assert c1.shape == (60 * 8, 64) and a1 is None
-    assert c2.data_ptr() == c1.data_ptr() and c2.shape == (60 * 8, 32)
-    c3, _ = dec.scratch(128, torch.device("cpu"))
-    assert c3.shape == (60 * 8, 128) and c3.dtype == torch.float32
+    words = 136 + 60 * 8 + 60      # posterior, messages, syndrome signs
+    assert dec.state_words == words and dec.delta_edges == 0
+    s1 = dec.scratch(64, torch.device("cpu"))
+    s2 = dec.scratch(32, torch.device("cpu"))
+    assert s1.shape == (64, words) and s1.dtype == torch.float32
+    assert s2.data_ptr() == s1.data_ptr() and s2.shape == (32, words)
+    s3 = dec.scratch(128, torch.device("cpu"))
+    assert s3.shape == (128, words) and s3.is_contiguous()
     flood = general_h_cuda.make_gh_decoder(H, DecoderConfig(schedule="F"))
-    c, a = flood.scratch(16, torch.device("cpu"))
-    assert c.shape == (60 * 8, 16) and a.shape == (136, 16)
+    # flooding adds the deltas of its one layer, all 480 edge slots
+    assert flood.delta_edges == 480
+    assert flood.scratch(16, torch.device("cpu")).shape == (16, words + 480)
+
+
+def _decision_matrix(name):
+    """The matrices of the build-time decision cases: the library's small
+    codes, a random matrix with rows of 33 to 40 slots (`wide`), and one
+    whose per-shot state exceeds a block's shared memory (`oversize`: 3000
+    x 6000, rows of 18 to 20 slots)."""
+    if name in ("random", "irregular", "lp04_perm"):
+        return _matrix(name)
+    if name in ("bicycle", "steane"):
+        return np.asarray(get_code(name).Hz) % 2
+    if name in ("shor_z", "shor_x"):
+        c = get_code("shor")
+        return np.asarray(c.Hz if name == "shor_z" else c.Hx) % 2
+    m, n, lo, hi, seed = ((12, 200, 33, 40, 3) if name == "wide"
+                          else (3000, 6000, 18, 20, 5))
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.int8)
+    for i in range(m):
+        H[i, rng.choice(n, int(rng.integers(lo, hi + 1)), replace=False)] = 1
+    return H
+
+
+# (matrix, schedule) -> (per_edge, threads, state_on_device, smem_bytes)
+DECISIONS = {
+    ("lp04_perm", "L"): (True, 128, False, 5816),    # 14-row layers, 8 lanes
+    ("lp04_perm", "F"): (False, 96, False, 11160),   # 84 rows side by side
+    ("bicycle", "L"): (True, 32, False, 11976),      # one-row layers, a warp
+    ("bicycle", "F"): (False, 96, False, 22500),
+    ("steane", "L"): (True, 32, False, 164),
+    ("steane", "F"): (True, 32, False, 276),
+    ("shor_z", "L"): (True, 32, False, 192),
+    ("shor_x", "F"): (True, 32, False, 288),
+    ("irregular", "L"): (True, 64, False, 4820),
+    ("irregular", "F"): (True, 256, False, 8456),    # 60 rows x 8 lanes
+    ("wide", "L"): (False, 32, False, 4788),         # dmax 40: a row each
+    ("wide", "F"): (False, 32, False, 9204),
+    ("oversize", "L"): (True, 256, True, 0),         # state and tables in
+    ("oversize", "F"): (False, 256, True, 0),        # device memory
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECISIONS), ids=lambda c: "-".join(c))
+def test_kernel_decisions_from_tables(case):
+    """`per_edge`, `threads`, `state_on_device` and `smem_bytes` of kernel E,
+    fixed from the tables when the decoder is built."""
+    name, sched = case
+    H = _decision_matrix(name)
+    dec = general_h_cuda.make_gh_decoder(H, DecoderConfig(schedule=sched),
+                                         layers=build_layers(H, sched))
+    t = dec.tabs
+    got = (dec.per_edge, dec.threads, dec.state_on_device, dec.smem_bytes)
+    assert got == DECISIONS[case]
+    shared = [b - a for (a, b), s in zip(t.runs, t.run_shared) if s]
+    assert dec.delta_edges == max(shared, default=0) * t.dmax
+    assert dec.state_words == t.n + t.n_edges + dec.delta_edges + t.m
+    assert dec.state_on_device == (4 * dec.state_words > 232448)
+    assert dec.lanes >= t.dmax or not dec.per_edge
+    assert dec.threads % 32 == 0 and 32 <= dec.threads <= 256
+    if dec.per_edge:
+        assert dec.lanes in (2, 4, 8, 16, 32) and dec.lanes < 2 * t.dmax + 2
+        assert dec.threads % dec.lanes == 0
+    if not dec.state_on_device:
+        assert dec.smem_bytes >= 4 * dec.state_words
+        assert dec.tables_in_shared == (dec.smem_bytes
+                                        > 4 * dec.state_words)
+    # forcing the state into device memory leaves the tables (where they
+    # fit) as the block's only shared memory
+    dec.state_on_device = True
+    assert dec.smem_bytes == (4 * dec.table_words if dec.tables_in_shared
+                              else 0)
+    assert dec.smem_bytes <= 232448
+
+
+@pytest.mark.parametrize("name,sched", [
+    ("lp04_perm", "F"), ("bicycle", "F"), ("steane", "F"), ("shor_x", "F"),
+    ("irregular", "L")])
+def test_column_table_lists_each_shared_edge_once(name, sched):
+    """`GHTables.col_edges()`: within every layer whose rows share a
+    variable, each edge appears exactly once, under its own variable, in
+    ascending order; the edges outside the layer are those outside its
+    slot range. Caller layers of two rows each make the `irregular` case's
+    runs shared."""
+    H = _decision_matrix(name)
+    m = H.shape[0]
+    layers = build_layers(H, sched)
+    if name == "irregular":
+        layers = LayerSchedule.from_layers(
+            [np.arange(i, min(i + 2, m)) for i in range(0, m, 2)], m)
+    dec = general_h_cuda.make_gh_decoder(H, DecoderConfig(schedule=sched),
+                                         layers=layers)
+    t = dec.tabs
+    assert t.run_shared.any()
+    col_ptr, col_edge = t.col_edges()
+    assert np.array_equal(dec.col_ptr.numpy(), col_ptr)
+    assert np.array_equal(dec.col_edge.numpy(), col_edge)
+    flat = t.var_of.reshape(-1)
+    assert col_ptr[0] == 0 and col_ptr[-1] == col_edge.size == (flat >= 0).sum()
+    assert np.array_equal(np.diff(col_ptr), H.sum(axis=0))
+    for (a, b), s in zip(t.runs, t.run_shared):
+        if not s:
+            continue
+        seen = []
+        for v in range(t.n):
+            es = col_edge[col_ptr[v]:col_ptr[v + 1]]
+            es = es[(es >= a * t.dmax) & (es < b * t.dmax)]
+            assert (np.diff(es) > 0).all() and (flat[es] == v).all()
+            seen.extend(es.tolist())
+        run = np.arange(a * t.dmax, b * t.dmax)
+        assert sorted(seen) == run[flat[run] >= 0].tolist()
+
+
+def test_ctypes_signature_matches_the_source():
+    """The wrapper's argtypes for `general_h_decode` follow the C signature
+    in csrc/general_h.cu, type by type (a count that differs is only caught
+    on the card, where the call raises)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(general_h_cuda.__file__).parent.parent / "csrc"
+           / "general_h.cu").read_text()
+    sig = re.search(r"int general_h_decode\(([^)]*)\)", src).group(1)
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+            for p in (q.strip() for q in sig.split(","))]
+    assert general_h_cuda.ARGTYPES == want
 
 
 def test_other_devices_raise():
