@@ -32,7 +32,13 @@ Phases (any failure raises and exits non-zero):
   6. kernel C (GF(2) elimination of OSD) against its plain version on the
      card: a 256-shot window of lp118_0 column orders, the decoder-failed
      shots of a BP decode at p = 0.05 in the port's reliability order,
-     topped up with random orders; tags, pivots and sel bit-exact;
+     topped up with random orders; tags, pivots and sel bit-exact under
+     both mappings of the back-elimination (a thread per basis row, a
+     thread per (row, word) pair), each timed on the window and on a lone
+     shot, in microseconds per column, the lone shot beside its bound; and
+     a 1200 x 2400 parity-check matrix whose basis lies in device memory,
+     a 256-shot window of random orders, bit-exact under both mappings and
+     each timed;
   7. the flagship path: `simulate_p` on lp118_0 (normalized min-sum,
      layered, 50 iterations, p = 0.05, 4096-shot chunks, 65,536 shots) on
      the card, with the launch counts of its kernels and its qBLER held to
@@ -88,7 +94,8 @@ Phases (any failure raises and exits non-zero):
      shape under the mapping the tables choose and the other one (a thread
      per edge, a thread per check row), each with the state in shared and
      in device memory, timed, and n_iter, converged and e_hat equal to the
-     plain version's and the posterior equal by value;
+     plain version's and the posterior equal by value; the lone shot beside
+     its bound;
  16. kernel E, kind BP: the same comparison;
  17. the non-QC main path: `simulate_p` on the permuted lp118_0 (min-sum,
      layered, 50 iterations, p = 0.05, 4096-shot chunks, 65,536 shots,
@@ -117,9 +124,11 @@ Phases (any failure raises and exits non-zero):
      cascade head's 4, and a 128-shot tail window at 99; the Tanner code
      side X, 4096 shots at 30 iterations; lp04_0 (block-row degree 7), 4096
      shots at 30; n_iter, converged and e_hat equal, the posterior equal by
-     value; beside it kernel B on the same syndromes: both times, a lone
-     shot's time per iteration for both, and the shots whose decisions
-     differ between the two kernels;
+     value; at config 5's shape also with a thread per variable
+     (max(m, n) threads) in place of the plan's block; beside it kernel B
+     on the same syndromes: both times, a lone shot's time per iteration
+     for both (kernel F with both blocks, beside its bound), and the shots
+     whose decisions differ between the two kernels;
  22. kernel B with the convergence check after every layer group against
      its plain version, MS and BP, lp118_0 layered, 4096 shots at 50
      iterations, bit-exact, timed beside the per-iteration check; the other
@@ -236,6 +245,11 @@ OLD = {
     "E BP L 4096x50 ms": "not recorded", "E BP F 4096x50 ms": "not recorded",
     "E MS lone us/it": 427.2, "E BP lone us/it": 738.6,
     "non-QC shots/s": 34668.0,
+    # kernels C and F before their redesign (one warp per shot; three passes
+    # per iteration with a thread per check row)
+    "C 256-window ms": 0.9418, "F MS 4096x99 ms": 0.2574,
+    "F BP 4096x99 ms": 0.3695, "F MS lone us/it": 2.141,
+    "F BP lone us/it": 3.0,
 }
 
 
@@ -768,21 +782,20 @@ def main():
         perms = torch.cat([perms, torch.from_numpy(np.stack(extra)).to(dev)])
     osd = OSD(Hz, C5_ORDER, device=dev)
     colsP = osd.cols[perms]
-    kt, kp, ks = gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW)
+    kt, kp, ks = gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW,
+                                              osd.elim_plan)
     pt, pp, ps = gf2_elim_cuda.eliminate_plain(colsP, osd.r, osd.rW)
     torch.cuda.synchronize()
     c_same = (torch.equal(kt, pt) and torch.equal(kp, pp)
               and torch.equal(ks, ps))
     c_err = int((kt != pt).sum() + (kp != pp).sum() + (ks != ps).sum())
-    c_ms = cuda_ms(
-        lambda: gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW), 20)
     c_plain = cuda_ms(
         lambda: gf2_elim_cuda.eliminate_plain(colsP, osd.r, osd.rW), 2)
     # each shot's sweep reads its columns up to the last one it selects and
     # folds every selected column into the basis: at least one pass over a
     # column's check and tag words for each
-    examined = int(((ks * torch.arange(1, n + 1, device=dev)).max(dim=1)
-                    .values).sum())
+    last = (ks * torch.arange(1, n + 1, device=dev)).max(dim=1).values
+    examined = int(last.sum())
     c_bound = bound(nbytes(colsP, kt, kp, ks),
                     (examined + int(ks.sum())) * (osd.mW + osd.rW))
     print(f"gf2_elim bound {c_bound[0]:.6f} ms ({c_bound[1]}; {examined} "
@@ -793,8 +806,65 @@ def main():
           f"columns selected per shot {int(ks.sum(dim=1).min())}.."
           f"{int(ks.sum(dim=1).max())}, last selected column "
           f"{int((ks * torch.arange(n, device=dev)).max())}; elements "
-          f"differing from plain {c_err}; kernel {c_ms:.4f} ms, plain "
-          f"{c_plain:.4f} ms  [{smi}]")
+          f"differing from plain {c_err}; plain {c_plain:.4f} ms  [{smi}]")
+    # both mappings of the back-elimination, the window and a lone shot
+    one = colsP[:1].contiguous()
+    one_cols = int(last[0])
+    one_bound = bound(nbytes(one, kt[:1], kp[:1], ks[:1]),
+                      (one_cols + int(ks[0].sum())) * (osd.mW + osd.rW))
+    c_times = {}
+    for pairs in (False, True):
+        pl = gf2_elim_cuda.plan(osd.r, osd.mW, osd.rW, pairs=pairs)
+        out = gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW, pl)
+        same = (torch.equal(out[0], pt) and torch.equal(out[1], pp)
+                and torch.equal(out[2], ps))
+        check(same, f"kernel C ({'pairs' if pairs else 'rows'}) == plain")
+        w_ms = cuda_ms(
+            lambda: gf2_elim_cuda.eliminate_cuda(colsP, osd.r, osd.rW, pl),
+            20)
+        o_ms = cuda_ms(
+            lambda: gf2_elim_cuda.eliminate_cuda(one, osd.r, osd.rW, pl), 20)
+        c_times[pairs] = (w_ms, o_ms)
+        chosen = "; the plan OSD chose" if pl == osd.elim_plan else ""
+        mapping = ("a thread per (row, word) pair" if pairs
+                   else "a thread per basis row")
+        print(f"gf2_elim, {mapping} ({pl.threads} threads, {pl.lanes} per "
+              f"row, stride {pl.stride}{chosen}): window {w_ms:.4f} ms = "
+              f"{1e3 * w_ms * ELIM_WINDOW / examined:.3f} "
+              f"us per column of a shot (before the redesign: "
+              f"{OLD['C 256-window ms']} ms); a lone shot {o_ms:.4f} ms for "
+              f"{one_cols} columns = {1e3 * o_ms / one_cols:.3f} us per "
+              f"column (bound {1e3 * one_bound[0] / one_cols:.6f} us per "
+              f"column, {one_bound[1]})  [{smi}]")
+    c_ms = c_times[osd.elim_plan.lanes > 1][0]
+    # a basis beyond a block's shared memory: 1200 checks, 77-word rows
+    rng = np.random.default_rng(12)
+    Hbig = np.zeros((1200, 2400), np.int8)
+    for j in range(2400):
+        Hbig[rng.choice(1200, 3, replace=False), j] = 1
+    big = OSD(Hbig, C5_ORDER, device=dev)
+    check(big.elim_plan.state_on_device, "the 1200-check basis lies in "
+          "device memory")
+    big_cols = big.cols[torch.stack([
+        torch.from_numpy(rng.permutation(Hbig.shape[1]))
+        for _ in range(ELIM_WINDOW)]).to(dev)].contiguous()
+    bt, bp_, bs = gf2_elim_cuda.eliminate_plain(big_cols, big.r, big.rW)
+    for pairs in (False, True):
+        pl = gf2_elim_cuda.plan(big.r, big.mW, big.rW, pairs=pairs)
+        out = gf2_elim_cuda.eliminate_cuda(big_cols, big.r, big.rW, pl)
+        same = (torch.equal(out[0], bt) and torch.equal(out[1], bp_)
+                and torch.equal(out[2], bs))
+        check(same, "kernel C == plain on the 1200-check basis")
+        b_ms = cuda_ms(lambda: gf2_elim_cuda.eliminate_cuda(
+            big_cols, big.r, big.rW, pl), 3)
+        chosen = "; the plan OSD chose" if pl == big.elim_plan else ""
+        print(f"gf2_elim 1200 x 2400 (r {big.r}, {big.mW} + {big.rW} words "
+              f"a row), {ELIM_WINDOW} shots, basis in device memory "
+              f"({big.r * pl.stride * 4} bytes a shot), "
+              f"{'pairs' if pairs else 'rows'} ({pl.threads} threads)"
+              f"{chosen}: equal to plain, "
+              f"{b_ms:.4f} ms (before the redesign the launch was "
+              f"refused)  [{smi}]")
     check(n_failed > 0, "the BP decode left shots for OSD")
     check(c_same, "kernel C == plain")
 
@@ -1330,6 +1400,14 @@ def main():
                             f"us per iteration)",
                             deep, syn_perm[:, slow[:1]].contiguous(), 10,
                             lone=True)
+            # syndromes in, posterior, n_iter and converged out; every edge
+            # of every iteration
+            e_lone = bound(4 * (Pz.shape[0] + Pz.shape[1]) + 5,
+                           deep.tabs.n_edges * MAX_ITER
+                           * (OPS_MS if kind_ == "MS" else OPS_BP))
+            print(f"  bound of that lone shot: "
+                  f"{1e3 * e_lone[0] / MAX_ITER:.6f} us per iteration "
+                  f"({e_lone[1]})  [{smi}]")
         for label, H, syn_T in (("bicycle", Bz, syn_bic),
                                 ("irregular 240x544", Irr, syn_irr)):
             dec = gh_decoder(H, kind_, GH_HEAD_ITER, SCHEDULE)
@@ -1603,6 +1681,21 @@ def main():
         f_times[kind_] = out
         worst_f[kind_] = max(worst_f[kind_], out[2])
         check(out[3], f"kernel F {kind_} == plain ({CODE}, {C5_ITER} it)")
+        # a thread per variable: max(m, n) threads, phase 2 in one pass
+        wide = qc_decoder(Hz, kind_, C5_ITER, C5_SCHEDULE, stacked=True)
+        wide.flood_threads = min(1024, -(-max(wide.tabs.m, wide.tabs.n)
+                                          // 32) * 32)
+        out_w = compare_flood(f"flood_qc {kind_} {CODE} side X p={C5_P}, "
+                              f"{wide.flood_threads} threads", wide, syn5,
+                              lch5, 5)
+        worst_f[kind_] = max(worst_f[kind_], out_w[2])
+        check(out_w[3], f"kernel F {kind_} with {wide.flood_threads} "
+              f"threads == plain ({CODE})")
+        print(f"  kernel F {kind_} {BATCH} x {C5_ITER}: the plan's "
+              f"{deep.flood_threads} threads {out[0]:.4f} ms, a thread per "
+              f"variable ({wide.flood_threads} threads) {out_w[0]:.4f} ms; "
+              f"before the redesign {OLD[f'F {kind_} 4096x99 ms']} ms  "
+              f"[{smi}]")
         head = qc_decoder(Hz, kind_, GH_HEAD_ITER, "F", stacked=True)
         out = compare_flood(f"flood_qc {kind_} {CODE} cascade head", head,
                             syn5, lch5, 5)
@@ -1639,14 +1732,25 @@ def main():
         one = syn5[slow[:1]].contiguous()
         one_T = one.T.contiguous()
         db = qc_decoder(Hz, kind_, C5_ITER, "F")
-        lone_f = cuda_ms(lambda: flood_qc_cuda.flood_qc_cuda(deep, one, lch5),
-                         20)
-        lone_b = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(db, one_T, lch5), 2)
         it_f = int(flood_qc_cuda.flood_qc_cuda(deep, one, lch5)[1][0])
         it_b = int(ms_qc_cuda.ms_qc_cuda(db, one_T, lch5)[1][0])
-        print(f"{kind_}-F, a lone shot: kernel F {lone_f:.4f} ms for {it_f} "
-              f"iterations = {1e3 * lone_f / it_f:.3f} us per iteration (launch "
-              f"included); kernel B {lone_b:.3f} ms for {it_b} = "
+        post1 = flood_qc_cuda.flood_qc_cuda(deep, one, lch5)
+        t = deep.tabs
+        one_bound = bound(nbytes(one, *post1),
+                          t.n_slots * t.L * it_f * (OPS_MS if kind_ == "MS"
+                                                    else OPS_BP))
+        for dec_ in (deep, wide):
+            lone_f = cuda_ms(
+                lambda: flood_qc_cuda.flood_qc_cuda(dec_, one, lch5), 20)
+            print(f"{kind_}-F, a lone shot, kernel F with "
+                  f"{dec_.flood_threads} threads: {lone_f:.4f} ms for {it_f} "
+                  f"iterations = {1e3 * lone_f / it_f:.3f} us per iteration "
+                  f"(launch included; before the redesign "
+                  f"{OLD[f'F {kind_} lone us/it']}; bound "
+                  f"{1e3 * one_bound[0] / it_f:.6f} us per iteration, "
+                  f"{one_bound[1]})  [{smi}]")
+        lone_b = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(db, one_T, lch5), 2)
+        print(f"{kind_}-F, a lone shot: kernel B {lone_b:.3f} ms for {it_b} = "
               f"{1e3 * lone_b / it_b:.1f} us per iteration  [{smi}]")
 
     # 22. kernel B with the check after every layer group

@@ -112,9 +112,27 @@ class OSD(nn.Module):
         tables = osd_static_from_reference(OSDStatic.build(H), device=device)
         self.order = order
         self.r, self.mW, self.rW = tables.r, tables.mW, tables.rW
+        # kernel C's launch, fixed here from the basis size: its threads,
+        # row stride, mapping and whether the basis lies in shared memory
+        # or in `elim_scratch` (device memory, grown to the largest window)
+        self.elim_plan = gf2_elim_cuda.plan(self.r, self.mW, self.rW)
+        self._scratch = None
         self.register_buffer("cols", tables.cols)
         self.register_buffer("H_T", torch.as_tensor(
             np.ascontiguousarray(H.T), dtype=torch.float32, device=device))
+
+    def elim_scratch(self, B: int, device):
+        """Kernel C's basis for B shots when the plan puts it in device
+        memory (None otherwise): int32 words, a view of a buffer kept on
+        the module."""
+        if not self.elim_plan.state_on_device or device.type != "cuda":
+            return None
+        need = B * self.r * self.elim_plan.stride
+        s = self._scratch
+        if s is None or s.device != device or s.numel() < need:
+            s = torch.empty(need, dtype=torch.int32, device=device)
+            self._scratch = s
+        return s[:need]
 
     def forward(self, e_hat: torch.Tensor, syndromes: torch.Tensor,
                 posterior: torch.Tensor) -> torch.Tensor:
@@ -128,7 +146,9 @@ class OSD(nn.Module):
 
         # 2. least-reliable basis: one elimination sweep
         colsP = self.cols[perm]                                   # (B, n, mW)
-        tags32, pivots, sel = gf2_elim_cuda.eliminate(colsP, self.r, self.rW)
+        tags32, pivots, sel = gf2_elim_cuda.eliminate(
+            colsP, self.r, self.rW, self.elim_plan,
+            self.elim_scratch(B, colsP.device))
         tags = words_to_int64(tags32)
         pivots = pivots.to(i64)
         pivots_valid = pivots >= 0

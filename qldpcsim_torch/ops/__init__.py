@@ -8,6 +8,8 @@ plain PyTorch versions, and the static QC structure they exploit.
     circulant-lifted H (kernel D);
   * `general_h_cuda` — min-sum and BP over any H with contiguous layers
     (kernel E);
+  * `flood_qc_cuda` — slot-stacked flooding min-sum and BP over a
+    circulant-lifted H (kernel F);
   * `_build`       — builds the `.cu` sources with nvcc and loads them.
 """
 

@@ -33,10 +33,14 @@ the summed deltas are this kernel's own association: the per-slot kernel
 by itself, so the two give equal decisions under MS but posteriors that
 differ in the last bits, and under BP the same statistics.
 
-The kernel gives each shot a thread block (a thread per check row, then per
-variable) and leaves at convergence; the plain version runs all shots
-together on (S, L, B) stacks, masking converged lanes as the reference does.
-Both take shot-major tensors: syndromes (B, m) in, posterior (B, n) out.
+The kernel gives each shot a thread block (a thread per check row, then a
+thread per variable: two passes and two barriers per iteration, the
+syndrome check fused into the next iteration's first pass) and leaves at
+convergence; the plain version runs all shots together on (S, L, B) stacks,
+masking converged lanes as the reference does. Both take shot-major
+tensors: syndromes (B, m) in, posterior (B, n) out. `plan(tabs)` fixes the
+block's threads from the tables when the decoder is built
+(`QCDecoder.flood_threads`); the wrapper reads it and takes no override.
 
 `flood_qc` runs the kernel for CUDA tensors and the plain version for CPU
 tensors. `LAUNCHES[kind]` counts kernel launches.
@@ -45,7 +49,6 @@ tensors. `LAUNCHES[kind]` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-
 import numpy as np
 import torch
 
@@ -58,6 +61,14 @@ LAUNCHES = {kind: 0 for kind in KINDS}
 _BIG = 1e30  # stand-in for +inf in the min reductions, as in the reference
 _KERNEL_MAX_DEG = 16      # largest block-row degree flood_qc.cu is built for
 _MAX_SMEM = 232448        # shared memory one block can use on an H100
+_MAX_THREADS = 1024       # threads of one block
+_VARS_PER_THREAD = 3      # phase 2's variables a thread keeps in registers
+# the C signature of flood_qc_decode: syn, B, kind; lch, beta, clamp;
+# max_iter, L, m_b, n_b, deg, threads; the seven device pointers and the
+# stream
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p] * 8)
 
 
 def uniform_degree(st):
@@ -81,6 +92,16 @@ def supports(st, tabs: QCTables) -> bool:
     deg = uniform_degree(st)
     return (deg is not None and 1 <= deg <= _KERNEL_MAX_DEG
             and smem_bytes(tabs) <= _MAX_SMEM)
+
+
+def plan(tabs: QCTables) -> int:
+    """Threads per shot of kernel F: a thread per check row, and at least a
+    third of n so that phase 2 takes at most 3 variables a thread from
+    registers, in whole warps, at most 1024 (rows beyond take a second
+    pass). 4 lanes per row, and a thread per variable, were slower on the
+    card (PERF.md §6)."""
+    work = max(tabs.m, -(-tabs.n // _VARS_PER_THREAD), 32)
+    return min(_MAX_THREADS, -(-work // 32) * 32)
 
 
 def stacked_tables(tabs: QCTables) -> dict:
@@ -226,17 +247,16 @@ def flood_qc_cuda(dec, syn: torch.Tensor, lch: float):
     lib = _build.load("flood_qc")
     fn = lib.flood_qc_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 8)
+    fn.argtypes = ARGTYPES
     post = torch.empty((B, tabs.n), dtype=torch.float32, device=dev)
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.L, tabs.m_b, tabs.n_b, deg,
-            dec.slot_j.data_ptr(), dec.slot_s.data_ptr(),
-            dec.flood_col_ptr.data_ptr(), dec.flood_col_k.data_ptr(),
+            dec.flood_threads, dec.slot_j.data_ptr(),
+            dec.slot_s.data_ptr(), dec.flood_col_ptr.data_ptr(),
+            dec.flood_col_k.data_ptr(),
             post.data_ptr(), n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "flood_qc", rc)
     LAUNCHES[dec.kind] += 1

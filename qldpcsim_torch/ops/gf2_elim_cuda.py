@@ -22,11 +22,21 @@ Words travel as int32 tensors holding the uint32 bits, since torch's
 uint32 arithmetic is thin on the CPU; the plain version widens them to
 int64 with a 32-bit mask. `eliminate` runs the kernel for CUDA tensors and
 the plain version for CPU tensors. `LAUNCHES` counts kernel launches.
+
+The kernel gives each shot a block and keeps the shot's basis at an odd row
+stride; `plan(r, mW, rW)` fixes, from the sizes alone, the block's threads,
+the row stride, the back-elimination's mapping (a thread per basis row, or
+`lanes` threads per row) and whether the basis lies in shared memory or,
+beyond a block's 232,448 bytes, in a device-memory scratch. `OSD` asks for
+its plan when it is built and keeps the scratch; nothing is decided by a
+failed launch, and no size of basis is refused.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -35,6 +45,51 @@ from qldpcsim_torch.ops import _build
 LAUNCHES = 0
 
 MASK32 = 0xFFFFFFFF
+MAX_SMEM = 232448     # shared memory one block can use on an H100
+# the C signature of gf2_elim: cols; B, n, mW, r, rW, stride, threads,
+# lanes, on_device; scratch, tags, pivots, sel and the stream
+ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 9
+            + [ctypes.c_void_p] * 5)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElimPlan:
+    """How kernel C runs for one basis size (see `plan`)."""
+
+    threads: int            # per shot (one block)
+    stride: int             # words between basis rows (odd)
+    lanes: int              # threads per basis row in the back-elimination
+    state_on_device: bool   # the basis in a device-memory scratch
+    smem_bytes: int         # dynamic shared memory of a block
+
+
+def plan(r: int, mW: int, rW: int, pairs: Optional[bool] = None
+         ) -> ElimPlan:
+    """Kernel C's launch for a basis of r rows of mW check words and rW tag
+    words. Rows are stored at an odd stride (bw + 1 for an even bw = mW +
+    rW), so that threads walking rows side by side read distinct banks.
+    Beside the basis, shared memory holds the pivot map (32 mW), the new
+    row, two column buffers and two words; the basis goes to device memory
+    when it would take the block past 232,448 bytes. `pairs` picks the
+    back-elimination's mapping: False gives each basis row a thread, the
+    block a thread per row in whole warps, 128 to 512; True gives each row
+    bw rounded up to a power of two of threads (at most 32), a word each: a
+    thread per (row, word) pair, at most 1024 per block, looping over the
+    rows. By default a basis in shared memory takes a thread per row and
+    one in device memory a thread per pair, the faster of the two on the
+    card for each (chip_smoke.py phase 6)."""
+    bw = mW + rW
+    stride = bw + 1 if bw % 2 == 0 else bw
+    aux = 32 * mW + stride + 2 * mW + 2
+    on_device = 4 * (r * stride + aux) > MAX_SMEM
+    if pairs is None:
+        pairs = on_device
+    lanes = min(32, 1 << (bw - 1).bit_length()) if pairs else 1
+    top = 1024 if pairs else 512
+    threads = min(top, max(128, -(-(r * lanes) // 32) * 32))
+    smem = 4 * (aux + (0 if on_device else r * stride))
+    return ElimPlan(threads=threads, stride=stride, lanes=lanes,
+                    state_on_device=on_device, smem_bytes=smem)
 
 
 def words_to_int64(w: torch.Tensor) -> torch.Tensor:
@@ -127,9 +182,13 @@ def eliminate_plain(colsP: torch.Tensor, r: int, rW: int):
     return words_to_int32(tags), pivots.to(torch.int32), sel
 
 
-def eliminate_cuda(colsP: torch.Tensor, r: int, rW: int):
-    """Kernel C: the contract of `eliminate_plain`, on the card (one warp per
-    shot)."""
+def eliminate_cuda(colsP: torch.Tensor, r: int, rW: int,
+                   plan_: Optional[ElimPlan] = None,
+                   scratch: Optional[torch.Tensor] = None):
+    """Kernel C: the contract of `eliminate_plain`, on the card (a block per
+    shot). `plan_` defaults to `plan(r, mW, rW)`; when it puts the basis in
+    device memory, `scratch` (at least B * r * stride int32 words on the
+    card) holds it, else one is allocated for the call."""
     global LAUNCHES
     if colsP.dtype != torch.int32 or colsP.dim() != 3 \
             or not colsP.is_contiguous():
@@ -139,31 +198,47 @@ def eliminate_cuda(colsP: torch.Tensor, r: int, rW: int):
     if not 0 < r <= 32 * mW or rW != -(-r // 32):
         raise ValueError(f"rank {r} and tag words {rW} do not fit {mW} "
                          "check words")
+    pl = plan(r, mW, rW) if plan_ is None else plan_
+    if pl.stride < mW + rW or pl.stride % 2 == 0:
+        raise ValueError(f"plan {pl} does not fit rows of {mW + rW} words")
     dev = colsP.device
     tags = torch.zeros((B, r, rW), dtype=torch.int32, device=dev)
     pivots = torch.full((B, r), -1, dtype=torch.int32, device=dev)
     sel = torch.zeros((B, n), dtype=torch.bool, device=dev)
     if B == 0:
         return tags, pivots, sel
+    need = B * r * pl.stride
+    if not pl.state_on_device:
+        scratch = None
+    elif scratch is None:
+        scratch = torch.empty(need, dtype=torch.int32, device=dev)
+    elif scratch.device != dev or scratch.dtype != torch.int32 \
+            or scratch.numel() < need or not scratch.is_contiguous():
+        raise ValueError(f"scratch must be {need} contiguous int32 words on "
+                         f"{dev}")
     lib = _build.load("gf2_elim")
     fn = lib.gf2_elim
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 4
+    fn.argtypes = ARGTYPES
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(colsP.data_ptr(), B, n, mW, r, rW, tags.data_ptr(),
+    rc = fn(colsP.data_ptr(), B, n, mW, r, rW, pl.stride, pl.threads,
+            pl.lanes, int(pl.state_on_device),
+            None if scratch is None else scratch.data_ptr(), tags.data_ptr(),
             pivots.data_ptr(), sel.data_ptr(), stream)
     _build.check(lib, "gf2_elim", rc)
     LAUNCHES += 1
     return tags, pivots, sel
 
 
-def eliminate(colsP: torch.Tensor, r: int, rW: int):
+def eliminate(colsP: torch.Tensor, r: int, rW: int,
+              plan_: Optional[ElimPlan] = None,
+              scratch: Optional[torch.Tensor] = None):
     """(B, n, mW) int32 packed columns -> tags (B, r, rW) int32, pivots
-    (B, r) int32, sel (B, n) bool: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    (B, r) int32, sel (B, n) bool: the kernel for CUDA tensors (with
+    `plan_` and `scratch` as `eliminate_cuda` takes them), the plain version
+    for CPU tensors."""
     if colsP.is_cuda:
-        return eliminate_cuda(colsP, r, rW)
+        return eliminate_cuda(colsP, r, rW, plan_, scratch)
     if colsP.device.type == "cpu":
         return eliminate_plain(colsP, r, rW)
     raise ValueError(f"unsupported device {colsP.device}")

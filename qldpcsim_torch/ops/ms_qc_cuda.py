@@ -284,7 +284,9 @@ class QCDecoder(nn.Module):
     For kernel B the tables also fix, here and not at launch, `per_edge`
     (a thread per edge, else per check row), `threads` per shot and
     `state_on_device` (the shot's state in device memory because it exceeds
-    a block's shared memory; set it to True to force that variant).
+    a block's shared memory; set it to True to force that variant). For
+    kernel F they fix `flood_threads` (threads per shot,
+    `flood_qc_cuda.plan`).
     """
 
     def __init__(self, st: QCStructure, cfg: DecoderConfig,
@@ -332,9 +334,11 @@ class QCDecoder(nn.Module):
                 H[i * t.L + r, gi[:, r]] = 1.0
         buf("H", H, torch.float32)
         if self.stacked:
-            # int32 column view (kernel); int64 indices and bool mask (plain)
+            # int32 column view (kernel); int64 indices and bool mask
+            # (plain); kernel F's threads per shot
             for name, a in flood_qc_cuda.stacked_tables(t).items():
                 buf(f"flood_{name}", a, None)
+            self.flood_threads = flood_qc_cuda.plan(t)
             return
         # plain version: gather index per block-row
         for i in range(t.m_b):

@@ -149,6 +149,43 @@ def _permuted_columns(code, B, seed, device):
     return st, cols[perms.to(device)]
 
 
+def _oversize_check_matrix():
+    """A 1200 x 2400 parity-check matrix of column weight 3 (seed 12):
+    kernel C's basis, about 1,190 rows of 77 words, exceeds a block's
+    shared memory and lies in device memory."""
+    rng = np.random.default_rng(12)
+    H = np.zeros((1200, 2400), np.int8)
+    for j in range(2400):
+        H[rng.choice(1200, 3, replace=False), j] = 1
+    return H
+
+
+def _elim_window(H, B, seed, device, doubled=False):
+    """B random column orders of H (of [H | H] with `doubled`: every column
+    has a dependent twin) as kernel C's packed input."""
+    if doubled:
+        H = np.concatenate([H, H], axis=1)
+    st = OSDStatic.build(H)
+    rng = np.random.default_rng(seed)
+    perms = torch.from_numpy(np.stack([rng.permutation(st.n)
+                                       for _ in range(B)]))
+    cols = osd_static_from_reference(st, device=device).cols
+    return st, cols[perms.to(device)].contiguous()
+
+
+def _assert_c_equals_plain(st, colsP, pairs):
+    """Kernel C under one mapping against its plain version, bit for bit."""
+    pl = gf2_elim_cuda.plan(st.r, st.mW, st.rW, pairs=pairs)
+    before = gf2_elim_cuda.LAUNCHES
+    kt, kp, ks = gf2_elim_cuda.eliminate_cuda(colsP, st.r, st.rW, pl)
+    pt, pp, ps = gf2_elim_cuda.eliminate_plain(colsP, st.r, st.rW)
+    torch.cuda.synchronize()
+    assert gf2_elim_cuda.LAUNCHES == before + 1
+    assert torch.equal(kt, pt) and torch.equal(kp, pp) and torch.equal(ks, ps)
+    assert (kp >= 0).all() and (ks.sum(dim=1) == st.r).all()
+    return pl
+
+
 def test_wrappers_reject_malformed_input():
     with pytest.raises(ValueError):
         channel_cuda.sample_tiles_cuda(torch.zeros(4, 3, dtype=torch.int64),
@@ -403,6 +440,60 @@ def test_flood_qc_kernel_equals_plain(cuda_device, kind, code, side, B,
     out = dec(syn.to(torch.int8), np.float32(0.03) / np.float32(3.0))
     assert ms_qc_cuda.LAUNCHES == b_before
     assert torch.equal(out.posterior, kp) and torch.equal(out.n_iter, ki)
+
+
+def _assert_f_equals_plain(dec, syn, lch):
+    """Kernel F under the decoder's mapping against its plain version:
+    n_iter, converged and the posterior bit for bit."""
+    before = dict(flood_qc_cuda.LAUNCHES)
+    kp, ki, kc = flood_qc_cuda.flood_qc_cuda(dec, syn, lch)
+    pp, pi, pc = flood_qc_cuda.flood_qc_plain(dec, syn, lch)
+    torch.cuda.synchronize()
+    assert flood_qc_cuda.LAUNCHES == dict(
+        before, **{dec.kind: before[dec.kind] + 1})
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert torch.equal(kp, pp)
+    return kp, ki, kc
+
+
+# threads of a block that takes kernel F's check rows in several passes and
+# its variables beyond the 3 a thread keeps in registers, as the block of a
+# code of more than 1024 check rows or 3072 variables does
+_F_SMALL_BLOCK = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small_block", [False, True])
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("case", ["zeros", "p0.2", "deg12"])
+def test_flood_qc_kernel_more_shapes_equal_plain(cuda_device, case, kind,
+                                                 small_block):
+    """Kernel F with the plan's block and with a 64-thread one (rows in
+    several passes, variables beyond registers): zero syndromes (every shot
+    converges after its first iteration), p = 0.2 (every shot runs to the
+    cap) and a synthetic lift of uniform degree 12, bit for bit."""
+    if case == "deg12":
+        st = _synthetic_lift("deg12")
+        dec = ms_qc_cuda.make_qc_decoder(
+            st, DecoderConfig(dec_type=kind, max_iter=30, schedule="F"),
+            device=cuda_device, stacked=True)
+        H = dec.H.cpu().numpy().astype(np.int64)
+    else:
+        H = np.asarray(get_code("lp118_0").Hz) % 2
+        dec = _decoder(H, "F", cuda_device, 20, kind, stacked=True)
+    assert dec.stacked
+    if small_block:
+        dec.flood_threads = _F_SMALL_BLOCK
+    p_err = {"zeros": 0.0, "p0.2": 0.2, "deg12": 0.04}[case]
+    syn = _syndromes(11, H, 130, p_err, cuda_device)
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    kp, ki, kc = _assert_f_equals_plain(dec, syn, lch)
+    if case == "zeros":
+        assert (ki == 1).all() and kc.all()
+    elif case == "p0.2":
+        assert (ki == dec.max_iter).float().mean() > 0.9
+    else:
+        assert kc.any() and (ki > 1).any()
 
 
 @pytest.mark.cuda
@@ -713,6 +804,73 @@ def test_gf2_elim_kernel_equals_plain(cuda_device, code, B):
     assert gf2_elim_cuda.LAUNCHES == before + 1
     assert (kp >= 0).all() and (ks.sum(dim=1) == st.r).all()
     assert torch.equal(kt, pt) and torch.equal(kp, pp) and torch.equal(ks, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("B", [1, 33, 256, 300])
+@pytest.mark.parametrize("code", ["lp118_0", "lp04_0", "tanner"])
+def test_gf2_elim_kernel_shapes_and_mappings_equal_plain(cuda_device, code, B,
+                                                         pairs):
+    """Kernel C under both mappings (a thread per basis row; a thread per
+    (row, word) pair) against its plain version: tags, pivots and sel bit
+    for bit, on random column orders of the library codes (all of rank
+    below m) and of [H | H], whose every column has a dependent twin."""
+    H = np.asarray(get_code(code).Hz) % 2
+    st, colsP = _elim_window(H, B, 40 + B, cuda_device)
+    pl = _assert_c_equals_plain(st, colsP, pairs)
+    assert not pl.state_on_device and (pl.lanes > 1) == pairs
+    st, colsP = _elim_window(H, B, 41 + B, cuda_device, doubled=True)
+    _assert_c_equals_plain(st, colsP, pairs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+def test_gf2_elim_kernel_basis_in_device_memory_equals_plain(cuda_device,
+                                                             pairs):
+    """A basis beyond a block's shared memory (1200 checks, 77-word rows):
+    before kernel C's redesign the launch was refused; now the basis lies in
+    device memory and the outputs equal the plain version's. Also the
+    small codes with the basis forced into device memory."""
+    st, colsP = _elim_window(_oversize_check_matrix(), 6, 43, cuda_device)
+    pl = _assert_c_equals_plain(st, colsP, pairs)
+    # the launch before the redesign asked for r (mW + rW) + 32 mW words
+    assert pl.state_on_device
+    assert 4 * (st.r * (st.mW + st.rW) + 32 * st.mW) > 232448
+    st, colsP = _elim_window(np.asarray(get_code("lp118_0").Hz) % 2, 33, 44,
+                             cuda_device)
+    forced = dataclasses.replace(
+        gf2_elim_cuda.plan(st.r, st.mW, st.rW, pairs=pairs),
+        state_on_device=True)
+    kt, kp, ks = gf2_elim_cuda.eliminate_cuda(colsP, st.r, st.rW, forced)
+    pt, pp, ps = gf2_elim_cuda.eliminate_plain(colsP, st.r, st.rW)
+    assert torch.equal(kt, pt) and torch.equal(kp, pp) and torch.equal(ks, ps)
+
+
+@pytest.mark.cuda
+def test_osd_with_basis_in_device_memory_on_card_equals_cpu(cuda_device):
+    """OSD-2 on a parity-check matrix of 1200 checks: on the card (kernel C,
+    its basis in the module's device-memory scratch) the same estimates as
+    on the CPU. Before kernel C's redesign the card raised here."""
+    H = _oversize_check_matrix()
+    n = H.shape[1]
+    rng = np.random.default_rng(13)
+    e_hat = torch.from_numpy((rng.random((6, n)) < 0.02).astype(np.int8))
+    syn = torch.from_numpy(((rng.random((6, n)) < 0.02).astype(np.int64)
+                            @ H.T % 2).astype(np.float32))
+    mags = np.stack([rng.permutation(n) + 1 for _ in range(6)])
+    signs = rng.choice([-1.0, 1.0], size=mags.shape)
+    post = torch.from_numpy((signs * mags * (8.0 / n)).astype(np.float32))
+    on_cpu = OSD(H, 2)(e_hat, syn, post)
+    osd = OSD(H, 2, device=cuda_device)
+    assert osd.elim_plan.state_on_device
+    before = gf2_elim_cuda.LAUNCHES
+    on_card = osd(e_hat.to(cuda_device), syn.to(cuda_device),
+                  post.to(cuda_device))
+    assert gf2_elim_cuda.LAUNCHES == before + 1
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert osd.elim_scratch(6, cuda_device).numel() \
+        == 6 * osd.r * osd.elim_plan.stride
 
 
 @pytest.mark.cuda

@@ -250,3 +250,47 @@ def test_code_beyond_kernel_f_limits_goes_to_the_per_slot_kernel(limit):
     assert ms_qc_cuda.make_qc_decoder(
         detect_qc(np.asarray(get_code("lp04_0").Hz) % 2), cfg,
         stacked=True).stacked
+
+
+# code -> kernel F's threads per shot: a thread per check row, at least a
+# third of n (under MS and BP alike)
+FLOOD_PLANS = {
+    "lp118_0": 256,    # 240 rows; 544 variables, 3 a thread
+    "lp04_0": 96,      # d = 7: 84 rows; 175 variables, 2 a thread
+    "tanner": 480,     # 465 rows; 1054 variables, 3 a thread
+}
+
+
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code", sorted(FLOOD_PLANS))
+def test_kernel_f_plan_from_tables(code, kind):
+    """Kernel F's threads per shot, fixed from the tables when the decoder
+    is built: a thread per check row under either kind, at least a third of
+    n, in whole warps, at most 1024."""
+    st = detect_qc(np.asarray(get_code(code).Hz) % 2)
+    dec = ms_qc_cuda.make_qc_decoder(
+        st, DecoderConfig(dec_type=kind, schedule="F"), stacked=True)
+    assert dec.stacked
+    t = dec.tabs
+    assert dec.flood_threads == FLOOD_PLANS[code]
+    assert flood_qc_cuda.plan(t) == FLOOD_PLANS[code]
+    assert dec.flood_threads == min(1024, -(-max(t.m, -(-t.n // 3))
+                                             // 32) * 32)
+    # packed shared-memory addresses need 16 bits each
+    assert t.n < 2 ** 16 and t.n_slots * t.L < 2 ** 16
+
+
+def test_ctypes_signature_matches_the_source():
+    """The wrapper's argtypes for `flood_qc_decode` follow the C signature
+    in csrc/flood_qc.cu, type by type."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(flood_qc_cuda.__file__).parent.parent / "csrc"
+           / "flood_qc.cu").read_text()
+    sig = re.search(r"int flood_qc_decode\(([^)]*)\)", src).group(1)
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+            for p in (q.strip() for q in sig.split(","))]
+    assert flood_qc_cuda.ARGTYPES == want

@@ -18,7 +18,7 @@ from qldpcsim_tpu.ops.gf2_elim_pallas import make_eliminate_pallas
 from qldpcsim_tpu.ops.gf2_elim_panel_pallas import make_eliminate_panel
 
 from qldpcsim_torch.convert import osd_static_from_reference
-from qldpcsim_torch.decoders.osd import OSDStatic
+from qldpcsim_torch.decoders.osd import OSD, OSDStatic
 from qldpcsim_torch.ops import gf2_elim_cuda
 
 
@@ -122,3 +122,75 @@ def test_empty_batch_and_word_helpers():
     assert torch.equal(gf2_elim_cuda.words_to_int32(wide), w)
     x = torch.tensor([[1, 2, 4, 7, 8]], dtype=torch.int64)
     assert gf2_elim_cuda.xor_fold(x, 1).tolist() == [1 ^ 2 ^ 4 ^ 7 ^ 8]
+
+
+def _oversize_check_matrix():
+    """A 1200 x 2400 parity-check matrix of column weight 3 (seed 12), as
+    tests/test_torch_cuda.py builds it."""
+    rng = np.random.default_rng(12)
+    H = np.zeros((1200, 2400), np.int8)
+    for j in range(2400):
+        H[rng.choice(1200, 3, replace=False), j] = 1
+    return H
+
+
+# code -> (r, mW, rW); the plan's (threads, stride, state_on_device,
+# smem_bytes) with a thread per basis row, and (threads, lanes) with a
+# thread per (row, word) pair; which of the two OSD takes
+PLANS = {
+    "lp118_0": ((232, 8, 8), (256, 17, False, 16940), (1024, 16), "rows"),
+    "tanner": ((457, 15, 15), (480, 31, False, 58840), (1024, 32), "rows"),
+    "lp04_0": ((78, 3, 3), (128, 7, False, 2628), (640, 8), "rows"),
+    "oversize": (None, (512, 77, True, 5484), (1024, 32), "pairs"),
+}
+
+
+@pytest.mark.parametrize("code", sorted(PLANS))
+def test_kernel_plan_from_the_basis_size(code):
+    """Kernel C's launch, fixed from (r, mW, rW) when OSD is built: a block
+    of a thread per basis row (128 to 512) or of a thread per (row, word)
+    pair (up to 1024), rows at an odd stride, and the basis in device
+    memory beyond a block's 232,448 bytes of shared memory (the 1200-check
+    matrix: 1,195 rows of 77 words, 368 KB), where OSD takes the pairs."""
+    shape, row_plan, pair_plan, chosen = PLANS[code]
+    H = (_oversize_check_matrix() if code == "oversize"
+         else np.asarray(get_code(code).Hz) % 2)
+    st = OSDStatic.build(H)
+    if shape is not None:
+        assert (st.r, st.mW, st.rW) == shape
+    else:
+        assert (st.r, st.mW, st.rW) == (1195, 38, 38)
+    pl = gf2_elim_cuda.plan(st.r, st.mW, st.rW, pairs=False)
+    assert (pl.threads, pl.stride, pl.state_on_device, pl.smem_bytes) \
+        == row_plan
+    assert pl.lanes == 1 and pl.stride % 2 == 1
+    assert pl.stride - (st.mW + st.rW) in (0, 1)
+    aux = 32 * st.mW + pl.stride + 2 * st.mW + 2
+    assert pl.state_on_device == (4 * (st.r * pl.stride + aux) > 232448)
+    assert pl.smem_bytes <= 232448
+    pp = gf2_elim_cuda.plan(st.r, st.mW, st.rW, pairs=True)
+    assert (pp.threads, pp.lanes) == pair_plan
+    assert (pp.stride, pp.state_on_device, pp.smem_bytes) == row_plan[1:]
+    # the module asks for the plan when it is built; on the CPU it keeps no
+    # scratch
+    osd = OSD(H, 1)
+    assert osd.elim_plan == {"rows": pl, "pairs": pp}[chosen]
+    assert osd.elim_plan == gf2_elim_cuda.plan(st.r, st.mW, st.rW)
+    assert osd.elim_scratch(4, torch.device("cpu")) is None
+
+
+def test_ctypes_signature_matches_the_source():
+    """The wrapper's argtypes for `gf2_elim` follow the C signature in
+    csrc/gf2_elim.cu, type by type (a count that differs is only caught on
+    the card, where the call raises)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(gf2_elim_cuda.__file__).parent.parent / "csrc"
+           / "gf2_elim.cu").read_text()
+    sig = re.search(r"int gf2_elim\(([^)]*)\)", src).group(1)
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+            for p in (q.strip() for q in sig.split(","))]
+    assert gf2_elim_cuda.ARGTYPES == want
