@@ -8,9 +8,17 @@ Phases (any failure raises and exits non-zero):
      power limit;
   2. build the six CUDA kernels from `qldpcsim_torch/csrc/*.cu` with nvcc,
      one process per source, all at once, with their register counts;
-  3. kernel A (threefry depolarizing channel) against its plain PyTorch
-     version on the card: the flagship chunk's 64 tiles x 64 x 544 at
-     p = 0.01 and 0.05, bit-exact;
+  3. kernel A (threefry depolarizing channel, the syndromes H e formed
+     inside it) against its plain PyTorch version on the card: err_x,
+     err_z, sy_z and sy_x bit-exact, and the errors-only variant, at
+     p = 0.01, 0.05 and 1.0, on the chunks of lp118_0, the permuted
+     lp118_0, the Tanner code (4096 shots each) and a random 6000 x 12,000
+     matrix with a zero-weight row (2048 shots); on the flagship's chunk the
+     device times of the fused launch, of the errors alone and of the
+     parent's composition (errors, then `syndromes_of`'s float32
+     products), with the host out of the way, the back-to-back call times,
+     the plain version's, a lone call's microseconds, the bound and the
+     integer-issue floor; the Tanner chunk's fused time beside its bound;
   4. kernel B, kind MS (min-sum over a circulant-lifted H), against its
      plain version on the card: 4096 flagship syndromes per side, 50
      iterations, layered and flooding schedules; e_hat, n_iter, converged
@@ -152,7 +160,10 @@ Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over the card's 3.35 TB/s and its operations over 67 Top/s
 (the float32 rate outside the tensor cores; integer work is counted against
 the same rate, the table of peaks having none for it), for the iterations
-and columns this run's data needed. No single PyTorch call computes any of
+and columns this run's data needed; kernel A's integer-issue floor (its
+operations over the INT32 lanes) is printed beside it. Every main path
+checks that each of its chunks ran kernel A once, with the syndromes
+formed inside it. No single PyTorch call computes any of
 the kernels' functions, so `library_ms` is null throughout.
 
 The last two lines are the kernels' JSON summary and
@@ -224,6 +235,14 @@ PEAK_OPS_S = 67e12
 OPS_MS = 15
 OPS_BP = 71
 OPS_DRAW = 84  # threefry2x32, 20 rounds, and the threshold compares
+OPS_EDGE = 3   # a syndrome edge: the column's word, its shift, the XOR
+# the INT32 lanes of an H100 SXM: 132 SMs x 64 a clock at the 1.98 GHz boost
+INT32_OPS_S = 132 * 64 * 1.98e9
+# kernel A's large .npy code: a random (BIG_N / 2) x BIG_N matrix
+BIG_N = 12000
+BIG_SEED = 12
+# the host's lead over the card when a kernel is timed alone (device_ms)
+SLEEP_CYCLES = 20_000_000
 # the timed runs: enough shots for a warm window of a second or more
 TIMED_SHOTS = 256 * BATCH          # the flagship and config 5
 C4_TIMED_SHOTS = [256 * BATCH, 128 * BATCH, 64 * BATCH, 32 * BATCH]  # per p
@@ -250,6 +269,8 @@ OLD = {
     "C 256-window ms": 0.9418, "F MS 4096x99 ms": 0.2574,
     "F BP 4096x99 ms": 0.3695, "F MS lone us/it": 2.141,
     "F BP lone us/it": 3.0,
+    # kernel A before its redesign: the errors alone, a thread per element
+    "A 4096x544 ms": "0.0645-0.0996 ms",
 }
 
 
@@ -298,6 +319,32 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds of fn() on the card with the host out of the way:
+    a sleep kernel holds the stream while the host enqueues all `reps`
+    calls, so the events time the launches back to back. The sleep grows
+    until the host has enqueued every call before it ends."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host did not get ahead of the card")
 
 
 def bound(n_bytes, n_ops):
@@ -406,6 +453,7 @@ def main():
     check(os.path.dirname(os.path.abspath(qldpcsim_torch.__file__))
           == os.path.join(HERE, "qldpcsim_torch"),
           "qldpcsim_torch must be the package beside chip_smoke.py")
+    from qldpcsim_torch.channel.depolarizing import syndromes_of
     from qldpcsim_torch.codes import get_code
     from qldpcsim_torch.decoders import (
         DecoderConfig, TannerGraph, build_layers, make_decoder)
@@ -416,6 +464,7 @@ def main():
     from qldpcsim_torch.ops import (
         _build, channel_cuda, flood_qc_cuda, general_h_cuda, gf2_elim_cuda,
         ms_qc_cuda, seq_qc_cuda)
+    from qldpcsim_torch.ops.channel_cuda import SyndromeTables
     from qldpcsim_torch.ops.qc import detect_qc
     from qldpcsim_torch.parallel.keys import chunk_keys
     from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -427,6 +476,7 @@ def main():
 
     def reset_launches():
         channel_cuda.LAUNCHES = 0
+        channel_cuda.SYN_LAUNCHES = 0
         gf2_elim_cuda.LAUNCHES = 0
         for k in ms_qc_cuda.LAUNCHES:
             ms_qc_cuda.LAUNCHES[k] = 0
@@ -445,6 +495,14 @@ def main():
                 "general_h BP": general_h_cuda.LAUNCHES["BP"],
                 "flood_qc MS": flood_qc_cuda.LAUNCHES["MS"],
                 "flood_qc BP": flood_qc_cuda.LAUNCHES["BP"]}
+
+    def check_fused(la, label):
+        """Every channel launch since the counts were reset formed its
+        chunk's syndromes too (read right after `read_launches`)."""
+        print(f"  {label}: channel launches {la['channel']}, of which with "
+              f"the syndromes formed inside {channel_cuda.SYN_LAUNCHES}")
+        check(la["channel"] > 0 and channel_cuda.SYN_LAUNCHES == la["channel"],
+              f"{label}: every chunk's channel is one fused launch")
 
     def phase(name):
         print(f"--- {name} (at {time.perf_counter() - t_start:.1f} s)",
@@ -484,29 +542,122 @@ def main():
     Hx_T = torch.as_tensor(Hx.T, dtype=torch.float32, device=dev)
     Hz_T = torch.as_tensor(Hz.T, dtype=torch.float32, device=dev)
 
-    # 3. kernel A against its plain version
-    phase("3 kernel A (channel)")
+    tanner = get_code("tanner")
+    Tx = np.asarray(tanner.Hx) % 2
+    Tz = np.asarray(tanner.Hz) % 2
+    nT = Tx.shape[1]
+
+    # 3. kernel A against its plain version: the fused launch (the errors
+    # and both syndromes) on the main paths' codes and a large .npy code,
+    # then the errors alone
+    phase("3 kernel A (channel, syndromes formed inside it)")
     key = fold_in(prng_key(SEED, device=dev), 0)
     keys = chunk_keys(key, 0, BATCH // 64)
-    worst_a = 0
-    for p in (0.01, P_POINT):
-        kx, kz = channel_cuda.sample_tiles_cuda(keys, p, n, 64)
-        px, pz = channel_cuda.sample_tiles_plain(keys, p, n, 64)
+    perm = np.random.default_rng(GH_PERM_SEED).permutation(n)
+    rngA = np.random.default_rng(BIG_SEED)
+    big = np.zeros((BIG_N // 2, BIG_N), np.int8)
+    for i in range(big.shape[0]):
+        big[i, rngA.choice(BIG_N, int(rngA.integers(10, 21)),
+                           replace=False)] = 1
+    big[7] = 0    # a check of weight 0
+    worst_a = 0.0
+    for label, Ax, Az, B_ in (
+            (CODE, Hx, Hz, BATCH),
+            (f"permuted {CODE}", Hx[:, perm], Hz[:, perm], BATCH),
+            ("tanner", Tx, Tz, BATCH),
+            (f"random {big.shape[0]} x {BIG_N}, rows of 10 to 20",
+             big[::-1], big, BATCH // 2)):
+        tabs_ = SyndromeTables.build(Ax, Az, device=dev)
+        keys_ = chunk_keys(key, 0, B_ // 64)
+        nA = Ax.shape[1]
+        for p in (0.01, P_POINT, 1.0):
+            out = channel_cuda.sample_shot_tiles_cuda(keys_, p, nA, 64, tabs_)
+            ex, ez = channel_cuda.sample_tiles_cuda(keys_, p, nA, 64)
+            plain = channel_cuda.sample_shot_tiles_plain(keys_, p, nA, 64,
+                                                         tabs_)
+            torch.cuda.synchronize()
+            check(out[0].shape == (B_, nA)
+                  and out[2].shape == (B_, Az.shape[0])
+                  and out[3].shape == (B_, Ax.shape[0]),
+                  f"channel shapes {[tuple(o.shape) for o in out]}")
+            diffs = [int((a != b).sum()) for a, b in
+                     zip(out + (ex, ez), plain + plain[:2])]
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(out, plain))
+            worst_a = max(worst_a, err)
+            print(f"channel {label}, B={B_}, p={p}: {int(out[0].sum())} X, "
+                  f"{int(out[1].sum())} Z errors, {int(out[2].sum())} + "
+                  f"{int(out[3].sum())} syndrome bits; elements differing "
+                  f"from plain (err_x, err_z, sy_z, sy_x; errors-only "
+                  f"err_x, err_z): {diffs}")
+            check(sum(diffs) == 0, f"kernel A == plain: {label}, p={p}")
+
+    tabs = SyndromeTables.build(Hx, Hz, device=dev)
+
+    def fused():
+        return channel_cuda.sample_shot_tiles_cuda(keys, P_POINT, n, 64,
+                                                   tabs)
+
+    def errors_only():
+        return channel_cuda.sample_tiles_cuda(keys, P_POINT, n, 64)
+
+    def composition():
+        """The parent's channel as the engine ran it: the errors, then the
+        float32 syndrome products."""
+        ex, ez = channel_cuda.sample_tiles_cuda(keys, P_POINT, n, 64)
+        return syndromes_of(ex, ez, Hx_T, Hz_T)
+
+    out = fused()
+    draws = out[0].numel()
+    edges = BATCH * (tabs.z.cols.numel() + tabs.x.cols.numel())
+    # the function's inputs: the keys and each H's columns (CSR)
+    a_bound = bound(nbytes(keys, *out, tabs.z.rp, tabs.z.cols, tabs.x.rp,
+                           tabs.x.cols), draws * OPS_DRAW + OPS_EDGE * edges)
+    print(f"channel bound inputs: {draws} draws x {OPS_DRAW} + {edges} "
+          f"syndrome edges x {OPS_EDGE} operations; integer-issue floor "
+          f"{1e3 * (draws * OPS_DRAW + OPS_EDGE * edges) / INT32_OPS_S:.6f}"
+          f" ms (the INT32 lanes: 132 SMs x 64 a clock at 1.98 GHz)")
+    a_ms = device_ms(fused, 50)
+    e_ms = device_ms(errors_only, 50)
+    comp_ms = device_ms(composition, 50)
+    a_call, comp_call = cuda_ms(fused, 50), cuda_ms(composition, 50)
+    a_plain = cuda_ms(lambda: channel_cuda.sample_shot_tiles_plain(
+        keys, P_POINT, n, 64, tabs), 10)
+    lone, enqueue, enqueue_e = [], [], []
+    for _ in range(21):
         torch.cuda.synchronize()
-        check(kx.shape == (BATCH, n), f"channel shape {tuple(kx.shape)}")
-        err = max(int((kx != px).sum()), int((kz != pz).sum()))
-        worst_a = max(worst_a, err)
-        print(f"channel p={p}: {int(kx.sum())} X, {int(kz.sum())} Z errors; "
-              f"elements differing from plain: {err}")
-        check(err == 0, f"kernel A == plain at p={p}")
-    a_ms = cuda_ms(lambda: channel_cuda.sample_tiles_cuda(keys, P_POINT, n,
-                                                          64), 50)
-    a_plain = cuda_ms(lambda: channel_cuda.sample_tiles_plain(keys, P_POINT,
-                                                              n, 64), 10)
-    a_bound = bound(nbytes(keys, kx, kz), kx.numel() * OPS_DRAW)
-    print(f"channel ({BATCH // 64} tiles x 64 x {n}): kernel {a_ms:.4f} ms, "
-          f"plain {a_plain:.4f} ms, bound {a_bound[0]:.6f} ms "
-          f"({a_bound[1]})  [{smi}]")
+        t0 = time.perf_counter()
+        fused()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        lone.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        errors_only()
+        enqueue_e.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    print(f"channel ({BATCH // 64} tiles x 64 x {n}, both syndromes), device "
+          f"ms with the host out of the way: fused {a_ms:.4f}, errors only "
+          f"{e_ms:.4f}, the parent's composition (errors, then "
+          f"syndromes_of) {comp_ms:.4f}; back-to-back calls, host "
+          f"included: fused {a_call:.4f}, composition {comp_call:.4f}; "
+          f"plain {a_plain:.4f} ms; bound {a_bound[0]:.6f} ms "
+          f"({a_bound[1]}); a lone call {1e6 * sorted(lone)[10]:.1f} us to "
+          f"the end of the kernel, {1e6 * sorted(enqueue)[10]:.1f} us to "
+          f"enqueue it, {1e6 * sorted(enqueue_e)[10]:.1f} us for the errors "
+          f"alone (medians of 21); before the redesign, errors only: "
+          f"{OLD['A 4096x544 ms']}  [{smi}]")
+    tabsT = SyndromeTables.build(Tx, Tz, device=dev)
+    aT_ms = device_ms(lambda: channel_cuda.sample_shot_tiles_cuda(
+        keys, P_POINT, nT, 64, tabsT), 50)
+    outT = channel_cuda.sample_shot_tiles_cuda(keys, P_POINT, nT, 64, tabsT)
+    bT = bound(nbytes(keys, *outT, tabsT.z.rp, tabsT.z.cols, tabsT.x.rp,
+                      tabsT.x.cols),
+               outT[0].numel() * OPS_DRAW
+               + OPS_EDGE * BATCH * (tabsT.z.cols.numel()
+                                     + tabsT.x.cols.numel()))
+    print(f"channel Tanner ({BATCH // 64} tiles x 64 x {nT}, both "
+          f"syndromes): fused {aT_ms:.4f} ms on the device, bound "
+          f"{bT[0]:.6f} ms ({bT[1]})  [{smi}]")
 
     def syndromes_at(p):
         ex, ez = channel_cuda.sample_tiles_cuda(keys, p, n, 64)
@@ -519,10 +670,6 @@ def main():
         return torch.remainder(ex.float() @ torch.as_tensor(
             H.T, dtype=torch.float32, device=dev), 2.0).T.contiguous()
 
-    tanner = get_code("tanner")
-    Tx = np.asarray(tanner.Hx) % 2
-    Tz = np.asarray(tanner.Hz) % 2
-    nT = Tx.shape[1]
     L4z = np.asarray(get_code("lp04_0").Hz) % 2
 
     def qc_decoder(H, dec_type, max_iter, sched, chk="iter", stacked=False):
@@ -877,6 +1024,7 @@ def main():
     reset_launches()
     res = simulate_p(Hx, Hz, P_POINT, cfg, pipeline=pipe)
     launches = read_launches()
+    check_fused(launches, "flagship")
     print(f"main path {CODE} MS-{SCHEDULE} {MAX_ITER} it p={P_POINT}: "
           f"{SHOTS} shots in {SHOTS // BATCH} chunks; launches {launches}")
     print(f"  counters {json.dumps(res.counters)}")
@@ -940,6 +1088,7 @@ def main():
     reset_launches()
     res5 = simulate_p(Hx, Hz, C5_P, cfg5, pipeline=pipe5)
     launches5 = read_launches()
+    check_fused(launches5, "config 5")
     print(f"config 5 {CODE} BP-{C5_SCHEDULE} {C5_ITER} it OSD-{C5_ORDER} "
           f"p={C5_P}: {C5_SHOTS} shots in {C5_SHOTS // BATCH} chunks; "
           f"launches {launches5}")
@@ -1170,6 +1319,7 @@ def main():
                     decType="MS", decIterations=C4_ITER, decSchedule="S",
                     rngSeed=SEED)
     launches4 = read_launches()
+    check_fused(launches4, "config 4")
     print(f"config 4 tanner MS-S {C4_ITER} it, p={C4_P}: {C4_SHOTS} shots per "
           f"p in {C4_SHOTS // BATCH} chunks; launches of the sweep "
           f"{launches4}")
@@ -1438,6 +1588,7 @@ def main():
     reset_launches()
     resE = simulate_p(Px, Pz, P_POINT, cfgE, pipeline=pipeE)
     launchesE = read_launches()
+    check_fused(launchesE, "non-QC")
     print(f"non-QC main path, permuted {CODE} MS-{SCHEDULE} {MAX_ITER} it "
           f"p={P_POINT}, impl auto: {SHOTS} shots in {SHOTS // BATCH} chunks; "
           f"launches {launchesE}")
@@ -1562,6 +1713,7 @@ def main():
             r = simulate_p(cs.Hx, cs.Hz, pT, cfgS, pipeline=pipes["cuda"],
                            p_index=i)
             la = read_launches()
+            check_fused(la, f"{label} p={pT}")
             if r.wall_time_s < 1.0:
                 # once more, now warm from the first chunk on
                 t0 = time.perf_counter()
@@ -1951,8 +2103,12 @@ def main():
 
     # 24. validate_encoding, and the compat shims on the card
     phase("24 validate_encoding and the compat shims")
+    reset_launches()
     r = simulate_p(Hx, Hz, P_POINT, dataclasses.replace(
         cfg, shots=CROSS_CHUNKS * BATCH, validate_encoding=True))
+    check(channel_cuda.LAUNCHES == CROSS_CHUNKS
+          and channel_cuda.SYN_LAUNCHES == 0,
+          "validate_encoding: kernel A draws the errors alone, once a chunk")
     framed = dict(r.counters, nIterAccX=r.avg_iterations_x * r.shots,
                   nIterAccZ=r.avg_iterations_z * r.shots)
     print(f"validate_encoding, first {CROSS_CHUNKS} chunks of the flagship: "

@@ -7,15 +7,23 @@ p/3, 2p/3 and p; err_x is set for {X, Y} and err_z for {Y, Z}. The syndromes
 are sy_z = Hz err_x and sy_x = Hx err_z (mod 2).
 
 The draw of a shot tile is `jax.random.bits(key_tile, (tile, n))` of the
-reference, reproduced bit for bit; on a CUDA device it runs as kernel A
-(`ops/channel_cuda.py`).
+reference, reproduced bit for bit. On a CUDA device `sample_shot_tiles` is
+one launch of kernel A (`ops/channel_cuda.py`), which forms the syndromes
+from the errors it draws as XOR parities over CSR tables of Hx and Hz;
+`syndromes_of` is the reference's float32 product, for errors that come
+from elsewhere (the encoder's framed words).
 """
 
 from __future__ import annotations
 
 import torch
 
-from qldpcsim_torch.ops.channel_cuda import sample_tiles, thresholds
+from qldpcsim_torch.ops.channel_cuda import (
+    SyndromeTables,
+    sample_shot_tiles_cuda,
+    sample_shot_tiles_plain,
+    thresholds,
+)
 from qldpcsim_torch.utils.threefry import random_bits
 
 
@@ -39,12 +47,17 @@ def syndromes_of(err_x, err_z, Hx_T, Hz_T):
     return sy_z, sy_x
 
 
-def sample_shot_tiles(keys, p, n: int, tile: int, Hx_T, Hz_T):
+def sample_shot_tiles(keys, p, n: int, tile: int, tabs: SyndromeTables):
     """Sample a batch composed of fixed-size tiles, one key per GLOBAL tile.
 
-    keys: (n_tiles, 2) int64 key words. Returns err_x, err_z (uint8 0/1) of
-    shape (n_tiles * tile, n) and the float32 syndromes sy_z, sy_x.
+    keys: (n_tiles, 2) int64 key words; tabs: the code's `SyndromeTables`
+    on the keys' device. Returns err_x, err_z (uint8 0/1) of shape
+    (n_tiles * tile, n) and the float32 syndromes sy_z (n_tiles * tile, m_z),
+    sy_x (n_tiles * tile, m_x): kernel A in one launch for CUDA tensors, its
+    plain version for CPU tensors.
     """
-    err_x, err_z = sample_tiles(keys, p, n, tile)
-    sy_z, sy_x = syndromes_of(err_x, err_z, Hx_T, Hz_T)
-    return err_x, err_z, sy_z, sy_x
+    if keys.is_cuda:
+        return sample_shot_tiles_cuda(keys, p, n, tile, tabs)
+    if keys.device.type == "cpu":
+        return sample_shot_tiles_plain(keys, p, n, tile, tabs)
+    raise ValueError(f"unsupported device {keys.device}")

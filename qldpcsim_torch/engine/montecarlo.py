@@ -53,6 +53,7 @@ from qldpcsim_torch.decoders import (
 from qldpcsim_torch.decoders.osd import OSD
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_torch.engine.results import PPointResult, format_results_table
+from qldpcsim_torch.ops.channel_cuda import SyndromeTables, sample_tiles
 from qldpcsim_torch.parallel.keys import chunk_keys
 from qldpcsim_torch.utils.checkpoint import CheckpointStore
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
@@ -193,10 +194,16 @@ class ShotPipeline(nn.Module):
                         if cfg.validate_encoding else None)
         self.classifier = ClassifierStatic.build(self.Hx, self.Hz,
                                                  device=self.device)
-        for name, H in (("Hx_T", self.Hx), ("Hz_T", self.Hz)):
-            self.register_buffer(name, torch.as_tensor(
-                np.ascontiguousarray(H.T), dtype=torch.float32,
-                device=self.device))
+        # the channel's syndromes: kernel A forms them from CSR tables of
+        # both matrices; the encoder's framed words go through the float32
+        # products of `syndromes_of`
+        self.syn_tabs = SyndromeTables.build(self.Hx, self.Hz,
+                                             device=self.device)
+        if self.encoder is not None:
+            for name, H in (("Hx_T", self.Hx), ("Hz_T", self.Hz)):
+                self.register_buffer(name, torch.as_tensor(
+                    np.ascontiguousarray(H.T), dtype=torch.float32,
+                    device=self.device))
 
         self.batch = cfg.batch_size or _auto_batch(self.n, cfg.shots)
         self.tile = _tile_size(self.batch)
@@ -208,11 +215,14 @@ class ShotPipeline(nn.Module):
         the channel's error, extract the syndromes from the corrupted
         codeword, and recover the effective error as word XOR frame. Both
         check matrices annihilate a frame, so syndromes, effective errors
-        and every counter equal the frame-free channel's."""
-        err_x, err_z, sy_z, sy_x = sample_shot_tiles(
-            tile_keys, p, self.n, self.tile, self.Hx_T, self.Hz_T)
+        and every counter equal the frame-free channel's. Without the
+        encoder the syndromes come from the channel's own launch; with it
+        the channel draws the errors alone, and the syndromes are formed
+        once, from the corrupted words."""
         if self.encoder is None:
-            return err_x, err_z, sy_z, sy_x
+            return sample_shot_tiles(tile_keys, p, self.n, self.tile,
+                                     self.syn_tabs)
+        err_x, err_z = sample_tiles(tile_keys, p, self.n, self.tile)
         fx, fz = self.encoder.encode(fold_in(tile_keys[0], _ENC_FOLD),
                                      err_x.shape[0])
         fx, fz = fx.bool(), fz.bool()

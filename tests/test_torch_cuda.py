@@ -18,7 +18,9 @@ from qldpcsim_torch.convert import osd_static_from_reference
 from qldpcsim_torch.decoders import DecoderConfig, build_layers
 from qldpcsim_torch.decoders.common import LayerSchedule
 from qldpcsim_torch.decoders.osd import OSD, OSDStatic
-from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
+from qldpcsim_torch.channel.depolarizing import syndromes_of
+from qldpcsim_torch.engine import montecarlo
+from qldpcsim_torch.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
 from qldpcsim_torch.ops import (
     _build,
     channel_cuda,
@@ -193,6 +195,17 @@ def test_wrappers_reject_malformed_input():
     with pytest.raises(ValueError):
         channel_cuda.sample_tiles_cuda(torch.zeros(4, 2, dtype=torch.int32),
                                        0.05, 544, 64)
+    L4 = np.asarray(get_code("lp04_0").Hz) % 2
+    tabs = channel_cuda.SyndromeTables.build(L4, L4)
+    with pytest.raises(ValueError):
+        channel_cuda.sample_shot_tiles_cuda(
+            torch.zeros(4, 3, dtype=torch.int64), 0.05, 175, 64, tabs)
+    with pytest.raises(ValueError):
+        channel_cuda.sample_shot_tiles_cuda(
+            torch.zeros(4, 2, dtype=torch.int32), 0.05, 175, 64, tabs)
+    with pytest.raises(ValueError):     # tables of another code
+        channel_cuda.sample_shot_tiles_cuda(
+            torch.zeros(4, 2, dtype=torch.int64), 0.05, 544, 64, tabs)
     H = np.asarray(get_code("lp04_0").Hz) % 2
     dec = _decoder(H, "L", "cpu", max_iter=4)
     with pytest.raises(ValueError):
@@ -229,6 +242,10 @@ def test_other_devices_raise():
     keys = torch.zeros(2, 2, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         channel_cuda.sample_tiles(keys, 0.05, 175, 64)
+    L4 = np.asarray(get_code("lp04_0").Hz) % 2
+    with pytest.raises(ValueError):
+        montecarlo.sample_shot_tiles(
+            keys, 0.05, 175, 64, channel_cuda.SyndromeTables.build(L4, L4))
     H = np.asarray(get_code("lp04_0").Hz) % 2
     with pytest.raises(ValueError):
         ms_qc_cuda.ms_qc(_decoder(H, "L", "cpu", max_iter=4),
@@ -268,6 +285,112 @@ def test_channel_kernel_equals_plain(cuda_device, p):
     assert channel_cuda.LAUNCHES == before + 1
     assert kx.shape == (4096, 544) and kx.any()
     assert torch.equal(kx, px) and torch.equal(kz, pz)
+
+
+def _channel_matrices(name):
+    """(Hx, Hz) of a library code, or a seeded random irregular Hz beside
+    its rows reversed as Hx: 400 x 1000 of row weights 1 to 24, and 6000 x
+    12,000 of row weights 10 to 20, each with a zero-weight row (row 7)."""
+    if name not in ("irregular1000", "n12000"):
+        c = get_code(name)
+        return np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    m, n, lo, hi, seed = {"irregular1000": (400, 1000, 1, 24, 1000),
+                          "n12000": (6000, 12000, 10, 20, 12)}[name]
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.int8)
+    for i in range(m):
+        H[i, rng.choice(n, int(rng.integers(lo, hi + 1)), replace=False)] = 1
+    H[7] = 0
+    return H[::-1].copy(), H
+
+
+CHANNEL_PS = [0.0, 1e-4, 0.05, 0.3333333, 1.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tile", [(64, 64), (300, 4), (4096, 64),
+                                    (33, 1), (1, 1)])   # err_z unaligned
+@pytest.mark.parametrize("code", ["lp04_0", "lp118_0", "tanner", "steane",
+                                  "shor", "bicycle", "irregular1000",
+                                  "n12000"])
+def test_fused_channel_kernel_equals_plain(cuda_device, code, B, tile):
+    """Kernel A with the syndromes against its plain version, bit for bit on
+    err_x, err_z, sy_z and sy_x, one launch a call; the errors-only variant
+    against `sample_tiles_plain`."""
+    Hx, Hz = _channel_matrices(code)
+    n = Hx.shape[1]
+    tabs = channel_cuda.SyndromeTables.build(Hx, Hz, device=cuda_device)
+    keys = chunk_keys(fold_in(prng_key(2, device=cuda_device), 5), 7,
+                      B // tile)
+    for p in CHANNEL_PS:
+        before = (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES)
+        out = channel_cuda.sample_shot_tiles_cuda(keys, p, n, tile, tabs)
+        assert (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        ex, ez = channel_cuda.sample_tiles_cuda(keys, p, n, tile)
+        assert (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES) == (
+            before[0] + 2, before[1] + 1)
+        plain = channel_cuda.sample_shot_tiles_plain(keys, p, n, tile, tabs)
+        torch.cuda.synchronize()
+        assert out[2].shape == (B, Hz.shape[0]) and out[2].is_contiguous()
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b), p
+        assert torch.equal(ex, plain[0]) and torch.equal(ez, plain[1])
+        if p >= 0.05 and B * n >= 1000:   # enough draws to hold an error
+            assert out[0].any() and out[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["lp118_0", "tanner", "steane"])
+def test_pipeline_sample_chunk_is_one_launch_on_card(cuda_device, code,
+                                                     monkeypatch):
+    """`ShotPipeline._sample_chunk` on the card launches kernel A once and
+    calls no syndrome product; its syndromes equal `syndromes_of` of its
+    errors, and everything equals the CPU pipeline's chunk."""
+    c = get_code(code)
+    Hx, Hz = np.asarray(c.Hx) % 2, np.asarray(c.Hz) % 2
+    cfg = SimConfig(shots=4096, dec_type="MS", dec_iterations=4,
+                    batch_size=4096, device="cuda")
+    pipe = ShotPipeline(Hx, Hz, cfg)
+    keys = chunk_keys(fold_in(prng_key(0, device=cuda_device), 0), 0,
+                      pipe.tiles_per_chunk)
+
+    def no_product(*args):
+        raise AssertionError("syndromes_of called on the fused path")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(montecarlo, "syndromes_of", no_product)
+        before = (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES)
+        out = pipe._sample_chunk(keys, 0.05)
+        assert (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+    want = syndromes_of(out[0], out[1], torch.as_tensor(
+        Hx.T, dtype=torch.float32, device=cuda_device), torch.as_tensor(
+        Hz.T, dtype=torch.float32, device=cuda_device))
+    assert torch.equal(out[2], want[0]) and torch.equal(out[3], want[1])
+    on_cpu = ShotPipeline(Hx, Hz, dataclasses.replace(cfg, device="cpu")
+                          )._sample_chunk(keys.cpu(), 0.05)
+    for a, b in zip(out, on_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_validate_encoding_on_card_leaves_the_counters(cuda_device):
+    """With the encoder the channel draws the errors alone (the syndromes
+    come from the framed words), and every counter stays."""
+    c = get_code("lp04_0")
+    cfg = SimConfig(shots=1024, dec_type="MS", dec_iterations=20,
+                    dec_schedule="L", batch_size=512, rng_seed=1,
+                    device="cuda")
+    plain = simulate_p(c.Hx, c.Hz, 0.05, cfg)
+    before = (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES)
+    enc = simulate_p(c.Hx, c.Hz, 0.05,
+                     dataclasses.replace(cfg, validate_encoding=True))
+    assert (channel_cuda.LAUNCHES, channel_cuda.SYN_LAUNCHES) == (
+        before[0] + 2, before[1])
+    assert enc.counters == plain.counters
+    assert enc.avg_iterations_x == plain.avg_iterations_x
+    assert enc.avg_iterations_z == plain.avg_iterations_z
 
 
 @pytest.mark.cuda
