@@ -154,7 +154,22 @@ Phases (any failure raises and exits non-zero):
      equal on the card and the CPU; one run of `python3 -m qldpcsim_torch`
      in a process of its own (4096 shots), its table and --out file parsed;
  24. `validate_encoding=True` on the flagship's first two chunks: counters
-     equal to phase 8's; one call of each `compat` decoder shim on the card.
+     equal to phase 8's; one call of each `compat` decoder shim on the card;
+ M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
+     per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
+     A launched once per chunk and slot, warm shots/s beside phase 7's and a
+     timed run of 1,048,576 shots beside phase 7's;
+ M2. two processes sharing cuda:0, started as `python3 -m qldpcsim_torch`
+     with the launcher's environment (MASTER_ADDR, a free MASTER_PORT,
+     WORLD_SIZE 2, RANK and LOCAL_RANK 0 and 1), each with a timeout, each
+     rank's launches read from QLDPC_LAUNCH_COUNTS: (a) the flagship with
+     --mesh, rank 0's counters equal to phase 7's; (b) config 4 with
+     --mesh-p 2, per-p counters equal to phase 13's; (c) config 5 with
+     --mesh, counters equal to phase 9's (kernels B, BP, and C, each rank
+     with its own group-level OSD pass); (d) the host microseconds of one
+     counter all-reduce over gloo between two ranks. Two slots or ranks on
+     one card show no scaling; `chip_mesh.py` runs the meshes of several
+     cards.
 
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over the card's 3.35 TB/s and its operations over 67 Top/s
@@ -175,6 +190,7 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -246,6 +262,27 @@ SLEEP_CYCLES = 20_000_000
 # the timed runs: enough shots for a warm window of a second or more
 TIMED_SHOTS = 256 * BATCH          # the flagship and config 5
 C4_TIMED_SHOTS = [256 * BATCH, 128 * BATCH, 64 * BATCH, 32 * BATCH]  # per p
+# M2: the seconds a rank may take before the phase fails
+RANK_TIMEOUT_S = 240
+# M2d: two ranks time the counter all-reduce (9 counters, and 2 p-rows)
+ALLREDUCE_PROBE = """
+import json, time
+import torch
+from qldpcsim_torch.parallel.mesh import allreduce_counters_host, multihost_init
+assert multihost_init(timeout_s=120)
+reps, out = 2000, {}
+for name, shape in (("us_9", (9,)), ("us_rows", (2, 9))):
+    t = torch.ones(shape, dtype=torch.int64)
+    for _ in range(50):
+        allreduce_counters_host(t)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        s = allreduce_counters_host(t)
+    out[name] = (time.perf_counter() - t0) / reps * 1e6
+    assert int(s.sum()) == 2 * t.numel()
+print(json.dumps(dict(out, reps=reps)))
+"""
 # kernels B, D and E with one thread per shot and the state in device
 # memory, as measured before their redesign (NVIDIA H100 80GB HBM3, 700 W;
 # PERF.md)
@@ -467,6 +504,7 @@ def main():
     from qldpcsim_torch.ops.channel_cuda import SyndromeTables
     from qldpcsim_torch.ops.qc import detect_qc
     from qldpcsim_torch.parallel.keys import chunk_keys
+    from qldpcsim_torch.parallel.mesh import make_mesh
     from qldpcsim_torch.utils.threefry import fold_in, prng_key
 
     t_start = time.perf_counter()
@@ -522,8 +560,7 @@ def main():
 
     # 2. build, one nvcc per source, all at once
     phase("2 build")
-    sources = ("channel", "ms_qc", "gf2_elim", "seq_qc", "general_h",
-               "flood_qc")
+    sources = _build.SOURCES
     t0 = time.perf_counter()
     _build.load_all(sources)
     print(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s "
@@ -1060,8 +1097,8 @@ def main():
               f"timed run {label}")
         return r
 
-    timed_run("flagship", Hx, Hz, P_POINT, cfg, pipe, TIMED_SHOTS,
-              OLD["flagship shots/s"])
+    timed7 = timed_run("flagship", Hx, Hz, P_POINT, cfg, pipe, TIMED_SHOTS,
+                       OLD["flagship shots/s"])
     breakdown(pipe, P_POINT, ("channel", "decode X", "decode Z", "classify"),
               smi)
     print(f"  lanes per cascade stage {pipe.dec_x.stages}: X "
@@ -2143,6 +2180,168 @@ def main():
     print(f"compat launches {la}")
     check(la["ms_qc MS"] > 0 and la["ms_qc BP"] > 0 and la["gf2_elim"] > 0,
           "the compat shims ran kernels B and C on the card")
+    t_mesh = time.perf_counter()
+
+    # M1. the flagship on a 2-slot mesh of the one card: a host thread per
+    # slot, each slot half of every chunk
+    phase("M1 flagship on a 2-slot mesh of cuda:0 (one process)")
+    mesh2 = make_mesh(["cuda:0", "cuda:0"])
+    cfgm = dataclasses.replace(cfg, mesh=mesh2)
+    pipem = ShotPipeline(Hx, Hz, cfgm)
+    check((pipem.n_dev, pipem.per_dev, pipem.tile) == (2, BATCH // 2, 64),
+          "M1 layout: two slots of 2048 shots, 64-shot tiles")
+    reset_launches()
+    resm = simulate_p(Hx, Hz, P_POINT, cfgm, pipeline=pipem)
+    launchesm = read_launches()
+    check_fused(launchesm, "M1")
+    print(f"M1 {CODE} MS-{SCHEDULE} {MAX_ITER} it p={P_POINT}, 2 slots of "
+          f"{pipem.per_dev}: launches {launchesm}")
+    print(f"  counters {json.dumps(resm.counters)}; avg iterations X "
+          f"{resm.avg_iterations_x!r} Z {resm.avg_iterations_z!r}")
+    check(resm.counters == res.counters
+          and resm.avg_iterations_x == res.avg_iterations_x
+          and resm.avg_iterations_z == res.avg_iterations_z,
+          "M1: the meshed counters equal phase 7's unmeshed counters")
+    check(launchesm["channel"] == (SHOTS // BATCH) * 2,
+          "M1: kernel A launched once per chunk and slot")
+    check(launchesm["ms_qc MS"] > 0, "M1: kernel B (MS) launched")
+    print(f"  warm {resm.warm_shots} shots in {resm.warm_time_s:.3f} s = "
+          f"{resm.shots_per_s_warm:.1f} shots/s (phase 7, unmeshed: "
+          f"{res.shots_per_s_warm:.1f})  [{smi}]")
+    rm = simulate_p(Hx, Hz, P_POINT, dataclasses.replace(
+        cfgm, shots=TIMED_SHOTS), pipeline=pipem)
+    print(f"  timed run, 2 slots: {TIMED_SHOTS} shots, warm {rm.warm_shots} "
+          f"shots in {rm.warm_time_s:.3f} s = {rm.shots_per_s_warm:.1f} "
+          f"shots/s (phase 7's timed run, unmeshed: "
+          f"{timed7.shots_per_s_warm:.1f}); qBLER {rm.qbler!r}  [{smi}]")
+    check(rm.qbler == timed7.qbler, "M1: the timed run's qBLER is phase 7's")
+
+    # M2. two processes sharing cuda:0, started as a launcher would
+    phase("M2 two processes sharing cuda:0 (python3 -m qldpcsim_torch)")
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def launch_env(rank, port):
+        return dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+
+    def run_two(cmd, extra_env=None, timeout=RANK_TIMEOUT_S):
+        """Two ranks of `cmd`; each must exit 0 within `timeout` seconds
+        (every process is killed on the way out); their stdout."""
+        port = free_port()
+        procs = [subprocess.Popen(
+            cmd, cwd=HERE, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            env=dict(launch_env(rank, port), **(extra_env or {})))
+            for rank in range(2)]
+        try:
+            outs = [p_.communicate(timeout=timeout) for p_ in procs]
+        finally:
+            for p_ in procs:
+                p_.kill()
+                p_.wait()
+        for rank, (p_, (_, err)) in enumerate(zip(procs, outs)):
+            check(p_.returncode == 0, f"rank {rank} of {cmd[:4]}: rc "
+                  f"{p_.returncode}\n{err[-3000:]}")
+        return [o for o, _ in outs]
+
+    def run_ranks(label, args):
+        """`python3 -m qldpcsim_torch ARGS` on two ranks: rank 0's --out
+        rows and each rank's kernel launches."""
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "out.jsonl")
+            counts = os.path.join(tmp, "launches")
+            t0 = time.perf_counter()
+            stdout = run_two([sys.executable, "-m", "qldpcsim_torch", *args,
+                              "--quiet", "--out", out],
+                             {"QLDPC_LAUNCH_COUNTS": counts})
+            secs = time.perf_counter() - t0
+            with open(out) as f:
+                rows = [json.loads(line) for line in f]
+            per_rank = []
+            for rank in range(2):
+                with open(f"{counts}.{rank}") as f:
+                    per_rank.append(json.load(f))
+        check("SIMULATION RESULTS" in stdout[0] and stdout[1] == "",
+              f"{label}: rank 0 alone prints the table")
+        print(f"{label}: 2 ranks on cuda:0 in {secs:.1f} s (process start "
+              f"included)")
+        for rank, la in enumerate(per_rank):
+            print(f"  rank {rank} launches "
+                  f"{ {k: v for k, v in la.items() if v} }")
+            check(la["channel"] > 0
+                  and la["channel syndromes"] == la["channel"],
+                  f"{label}: rank {rank} ran kernel A, one fused launch a "
+                  "chunk")
+        return rows, per_rank
+
+    def rate(row):
+        v = row["shots_per_s_warm"]
+        return "not measured (one chunk)" if v is None else f"{v:.1f}"
+
+    def same_counts(row, r):
+        return ({k: row[k] for k in r.counters} == r.counters
+                and row["Avg_number_of_iterations_X"] == r.avg_iterations_x
+                and row["Avg_number_of_iterations_Z"] == r.avg_iterations_z)
+
+    common = ["--batch", str(BATCH), "--rngSeed", str(SEED)]
+    # (a) the flagship, shots sharded over the two ranks
+    rows_a, la_a = run_ranks("M2a flagship --mesh", [
+        "--code", CODE, "--p", str(P_POINT), "--shots", str(SHOTS),
+        "--decType", "MS", "--decSchedule", SCHEDULE, "--decIterations",
+        str(MAX_ITER), "--mesh", *common])
+    check(same_counts(rows_a[0], res),
+          "M2a: rank 0's counters equal phase 7's")
+    for rank, la in enumerate(la_a):
+        check(la["channel"] == SHOTS // BATCH and la["ms_qc MS"] > 0,
+              f"M2a: rank {rank} ran kernels A (once a chunk) and B (MS)")
+    print(f"  warm {rate(rows_a[0])} shots/s on rank 0 "
+          f"(phase 7 in one process: {res.shots_per_s_warm:.1f})  [{smi}]")
+    # (b) config 4's sweep with its p-points on two rows, one per rank
+    rows_b, la_b = run_ranks("M2b config 4 --mesh-p 2", [
+        "--Hx", files4[0], "--Hz", files4[1], "--p",
+        *[str(v) for v in C4_P], "--shots", str(C4_SHOTS), "--decType",
+        "MS", "--decSchedule", "S", "--decIterations", str(C4_ITER),
+        "--rngSeed", str(SEED), "--mesh-p", "2"])
+    check([r_["p"] for r_ in rows_b] == C4_P, "M2b: one row per p")
+    for row, r4 in zip(rows_b, res4):
+        check(same_counts(row, r4),
+              f"M2b p={row['p']}: counters equal phase 13's serial sweep")
+        print(f"  p={row['p']}: warm {rate(row)} shots/s "
+              f"(phase 13: {r4.shots_per_s_warm:.1f})  [{smi}]")
+    for rank, la in enumerate(la_b):
+        check(la["channel"] == len(C4_P) // 2 * C4_SHOTS // BATCH
+              and la["seq_qc MS"] > 0,
+              f"M2b: rank {rank} ran kernels A (once a chunk of its two p) "
+              "and D (MS)")
+    # (c) config 5: BP + OSD-2, each rank with its own group-level OSD pass
+    rows_c, la_c = run_ranks("M2c config 5 --mesh", [
+        "--code", CODE, "--p", str(C5_P), "--shots", str(C5_SHOTS),
+        "--decType", "BP", "--decSchedule", C5_SCHEDULE, "--decIterations",
+        str(C5_ITER), "--OSDorder", str(C5_ORDER), "--mesh", *common])
+    check(same_counts(rows_c[0], res5),
+          "M2c: rank 0's counters equal phase 9's")
+    for rank, la in enumerate(la_c):
+        check(la["channel"] == C5_SHOTS // BATCH and la["ms_qc BP"] > 0
+              and la["ms_qc MS"] == 0,
+              f"M2c: rank {rank} ran kernels A and B (BP)")
+    check(sum(la["gf2_elim"] for la in la_c) > 0,
+          "M2c: kernel C launched by the ranks' OSD passes")
+    print(f"  warm {rate(rows_c[0])} shots/s on rank 0 "
+          f"(phase 9 in one process: {res5.shots_per_s_warm:.1f})  [{smi}]")
+    # (d) the host time of one counter all-reduce between the two ranks
+    stdout = run_two([sys.executable, "-c", ALLREDUCE_PROBE])
+    probe = [json.loads(o.strip().splitlines()[-1]) for o in stdout]
+    print(f"M2d counter all-reduce over gloo, 2 ranks, mean of "
+          f"{probe[0]['reps']}: " + "; ".join(
+              f"rank {i}: {pr['us_9']:.1f} us for 9 counters, "
+              f"{pr['us_rows']:.1f} us for 2 x 9" for i, pr in
+              enumerate(probe)) + f"  [{smi}]")
+    print(f"mesh phases M1-M2: {time.perf_counter() - t_mesh:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launches_, err, ms, plain_ms, bnd):

@@ -15,7 +15,10 @@ the repository unchanged). Modules mirror the reference's layout and names:
     decoders), bit-flipping and naive-greedy, the windowed straggler
     cascade, and the OSD post-decoder;
   * `engine` — classification counters and the Monte-Carlo loop
-    (`ShotPipeline`, `simulate_p`, and the p-sweep `simulate`);
+    (`ShotPipeline`, `simulate_p`, and the p-sweeps `simulate` and
+    `simulate_sweep`, the p-points as a second axis of slots);
+  * `parallel` — shots sharded over slots (cards, or CPU slots) and
+    processes (`torch.distributed`, gloo), counters reduced on the host;
   * `ops` — the hand-written CUDA kernels (`csrc/*.cu`) and their plain
     PyTorch versions;
   * `cli` (`python -m qldpcsim_torch`) and `compat` — the command line and
@@ -40,6 +43,7 @@ __all__ = [
     "convert",
     "simulate",
     "simulate_p",
+    "simulate_sweep",
     "SimConfig",
 ]
 
@@ -52,7 +56,7 @@ def __getattr__(name):
     if name in ("codes", "gf2", "channel", "decoders", "engine", "parallel",
                 "ops", "utils", "convert"):
         return importlib.import_module(f"qldpcsim_torch.{name}")
-    if name in ("simulate", "simulate_p", "SimConfig"):
+    if name in ("simulate", "simulate_p", "simulate_sweep", "SimConfig"):
         mod = importlib.import_module("qldpcsim_torch.engine.montecarlo")
         return getattr(mod, name)
     raise AttributeError(f"module 'qldpcsim_torch' has no attribute {name!r}")

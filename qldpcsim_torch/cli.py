@@ -2,20 +2,32 @@
 
 The reference CLI's flags: --Hx --Hz --p --shots --rngSeed --decType
 --decIterations --decSchedule --OSDorder, and its extensions --code (the
-built-in library), --batch, --layerCompat, --impl, --validateEncoding,
---bfResidual, --checkpointDir (resumable sweeps), --out (JSON lines),
---quiet and --profile. `--device` is `cuda` (the default: the CUDA kernels;
-without a card the run raises, it does not move to the CPU) or `cpu` (their
-plain PyTorch versions). The reference's multi-device flags (--mesh,
---mesh-p, --execMode) come with the multi-GPU port and are not parsed yet.
+built-in library), --batch, --mesh, --mesh-p, --execMode, --layerCompat,
+--impl, --validateEncoding, --bfResidual, --checkpointDir (resumable
+sweeps), --out (JSON lines), --quiet and --profile. Two differ in their
+choices: `--device` is `cuda` (the default: the CUDA kernels; without a card
+the run raises, it does not move to the CPU) or `cpu` (their plain PyTorch
+versions), and `--execMode` is `auto` or `perdevice`, the one sharded mode
+(the reference's `shardmap` is a partitioned JAX program).
+
+`--mesh` shards each chunk's shots over the cards this process owns (on the
+CPU: one slot per process); `--mesh-p N` runs the p-points N at a time on N
+rows of slots. Under a launcher (torchrun, or the same environment set by
+hand) the processes join one gloo process group first; rank 0 alone prints
+and writes `--out`. With `QLDPC_LAUNCH_COUNTS=PATH` in the environment every
+rank writes its kernel launches (`ops.launch_counts`) as JSON to
+`PATH.<rank>` when the run ends.
 
     python -m qldpcsim_torch --code lp118_0 --p 0.03 0.05 --shots 65536 \\
         --decType MS --decSchedule L --decIterations 50 --rngSeed 0
+    torchrun --nproc-per-node 2 -m qldpcsim_torch --mesh --code lp118_0 ...
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 from typing import Optional
 
@@ -49,6 +61,19 @@ def build_parser() -> argparse.ArgumentParser:
     ex = parser.add_argument_group("execution")
     ex.add_argument("--batch", type=int, default=0,
                     help="Shots per chunk (0 = auto).")
+    ex.add_argument("--mesh", action="store_true",
+                    help="Shard each chunk's shots over the cards this "
+                         "process owns and over every process of the run "
+                         "(counters equal the unsharded run's).")
+    ex.add_argument("--mesh-p", type=int, default=0, metavar="N",
+                    help="Run the p-points N at a time on N rows of slots "
+                         "(per-p counters equal the serial sweep's).")
+    ex.add_argument("--execMode", choices=("auto", "perdevice"),
+                    default="auto",
+                    help="Sharded execution (with --mesh/--mesh-p): "
+                         "perdevice, the one mode: a host thread per local "
+                         "slot, counters summed on the host and over "
+                         "processes (gloo).")
     ex.add_argument("--layerCompat", action="store_true",
                     help="Reproduce the reference's cross-wired layer derivation.")
     ex.add_argument("--impl",
@@ -83,6 +108,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
+    sharded = bool(args.mesh or args.mesh_p)
+    lead = True  # several processes: rank 0 alone prints and writes --out
+    if sharded:
+        from qldpcsim_torch.parallel.mesh import multihost_init, world
+
+        multihost_init()
+        lead = world()[0] == 0
 
     if args.code:
         from qldpcsim_torch.codes import get_code
@@ -97,16 +129,18 @@ def main(argv: Optional[list] = None) -> int:
         print("error: provide either --code or both --Hx and --Hz", file=sys.stderr)
         return 2
 
-    print("\n   Command line arguments:")
-    print(args)
-    print("")
+    if lead:
+        print("\n   Command line arguments:")
+        print(args)
+        print("")
 
     p = np.asarray(args.p, dtype=np.float64)
     if p.size == 0 or p.min() < 0.0 or p.max() > 1.0:
         print("error: --p values must lie in [0, 1]", file=sys.stderr)
         return 2
 
-    from qldpcsim_torch.engine.montecarlo import ShotPipeline, SimConfig, simulate_p
+    from qldpcsim_torch.engine.montecarlo import (
+        ShotPipeline, SimConfig, default_mesh, simulate_p, simulate_sweep)
     from qldpcsim_torch.engine.results import format_results_table
     from qldpcsim_torch.utils.profiling import trace_context
 
@@ -116,13 +150,27 @@ def main(argv: Optional[list] = None) -> int:
         rng_seed=args.rngSeed, batch_size=args.batch, layer_compat=args.layerCompat,
         bf_residual=args.bfResidual, validate_encoding=args.validateEncoding,
         impl=args.impl, device=args.device,
+        mesh=default_mesh(args.device, max(1, args.mesh_p)) if sharded
+        else None, mesh_p=args.mesh_p, exec_mode=args.execMode,
         checkpoint_dir=args.checkpointDir, progress=not args.quiet,
     )
     with trace_context("p_sweep", args.profile):
-        pipe = ShotPipeline(Hx, Hz, cfg)
-        results = [simulate_p(Hx, Hz, pT, cfg, pipeline=pipe, p_index=i)
-                   for i, pT in enumerate(p)]
+        if cfg.mesh_p:
+            results = simulate_sweep(Hx, Hz, p, cfg)
+        else:
+            pipe = ShotPipeline(Hx, Hz, cfg)
+            results = [simulate_p(Hx, Hz, pT, cfg, pipeline=pipe, p_index=i)
+                       for i, pT in enumerate(p)]
 
+    counts_path = os.environ.get("QLDPC_LAUNCH_COUNTS")
+    if counts_path:
+        from qldpcsim_torch.ops import launch_counts
+        from qldpcsim_torch.parallel.mesh import world
+
+        with open(f"{counts_path}.{world()[0]}", "w") as f:
+            json.dump(launch_counts(), f)
+    if not lead:
+        return 0
     print(format_results_table(results))
     if args.out:
         with open(args.out, "w") as f:

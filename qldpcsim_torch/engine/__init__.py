@@ -10,6 +10,7 @@ from qldpcsim_torch.engine.montecarlo import (
     SimConfig,
     simulate,
     simulate_p,
+    simulate_sweep,
 )
 from qldpcsim_torch.engine.results import PPointResult, format_results_table
 
@@ -20,6 +21,7 @@ __all__ = [
     "SimConfig",
     "simulate_p",
     "simulate",
+    "simulate_sweep",
     "PPointResult",
     "format_results_table",
 ]

@@ -21,9 +21,18 @@ On `device="cuda"` the channel, the decoder and OSD's elimination run as
 the CUDA kernels of `ops/`; on `device="cpu"` their plain PyTorch versions
 run. A CUDA device without a card raises; nothing falls back.
 
+With `cfg.mesh` (`parallel.mesh.make_mesh`) the chunks are split over
+slots: chunk c owns global tiles [c tpc, (c + 1) tpc), and slot d of the
+chunk the d-th run of `tiles_per_dev` of them, so the counters are those of
+the unmeshed run whenever the 64-shot tile fits the layout. Each local slot
+has its own `ShotPipeline` on its own device, driven by its own host thread;
+the counters are summed once per key group over the slots and the processes.
+`simulate_sweep` lays the p-points of a sweep over a second axis of slots.
+
 With `checkpoint_dir` the counters are saved after every key group under an
 id that pins everything the counter stream depends on, and a rerun resumes
-at the first chunk not yet counted.
+at the first chunk not yet counted. Under several processes every rank
+reads the checkpoint and rank 0 writes it, after the reduction.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -53,8 +63,15 @@ from qldpcsim_torch.decoders import (
 from qldpcsim_torch.decoders.osd import OSD
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_torch.engine.results import PPointResult, format_results_table
+from qldpcsim_torch.ops import _build
 from qldpcsim_torch.ops.channel_cuda import SyndromeTables, sample_tiles
 from qldpcsim_torch.parallel.keys import chunk_keys
+from qldpcsim_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    per_device_multi_chunk_fn,
+    world,
+)
 from qldpcsim_torch.utils.checkpoint import CheckpointStore
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
 
@@ -113,7 +130,16 @@ class SimConfig:
                                   # (DecoderConfig.impl):
                                   # auto | edge | mxu | seq | qc | gh
     device: str = "cuda"          # "cuda" (the kernels) | "cpu" (their plain
-                                  # PyTorch versions)
+                                  # PyTorch versions); with a mesh, the
+                                  # slots' devices are the mesh's
+    mesh: Optional[Mesh] = None   # parallel.mesh.make_mesh(): shard each
+                                  # chunk's shots over the slots
+    mesh_p: int = 0               # > 0: `simulate` lays the p-points over
+                                  # mesh_p rows of slots (simulate_sweep)
+    exec_mode: str = "auto"       # sharded execution: "auto" | "perdevice"
+                                  # (the one mode: a host thread per local
+                                  # slot, counters summed on the host and
+                                  # over processes); env QLDPC_EXEC_MODE
 
     def decoder_config(self) -> DecoderConfig:
         return DecoderConfig(
@@ -126,18 +152,48 @@ class SimConfig:
         )
 
 
-def _auto_batch(n: int, shots: int) -> int:
+def _auto_batch(n: int, shots: int, n_dev: int = 1) -> int:
     """Chunk size: 4096 shots (2048 for n > 1536), fewer when the run is
-    shorter, always a multiple of the 64-shot RNG tile."""
+    shorter, always a multiple of 64 * n_dev, so that every slot's share is
+    whole 64-shot RNG tiles and the counters do not depend on the layout."""
+    quantum = 64 * n_dev
     target = 4096 if n <= 1536 else 2048
-    b = min(target, max(64, shots))
-    return max(64, (b // 64) * 64)
+    b = min(max(target, quantum), max(quantum, shots))
+    return max(quantum, (b // quantum) * quantum)
 
 
-def _tile_size(batch: int) -> int:
-    """RNG tile size: 64 when the batch allows (the layout-invariant tile),
-    else the largest divisor of both."""
-    return max(1, math.gcd(batch, 64))
+def _tile_size(batch: int, per_dev: Optional[int] = None) -> int:
+    """RNG tile size: 64 when the layout allows (the layout-invariant tile),
+    else the largest divisor of the batch and of a slot's share."""
+    t = math.gcd(batch, 64)
+    if per_dev is not None and per_dev % t:
+        t = math.gcd(per_dev, t)
+    return max(1, t)
+
+
+def _resolve_exec_mode(cfg: SimConfig) -> str:
+    """The sharded execution mode: `cfg.exec_mode`, or `QLDPC_EXEC_MODE`
+    when that is "auto". The port has one mode, "perdevice"; the
+    reference's "shardmap" (one partitioned program) has no counterpart."""
+    mode = cfg.exec_mode
+    if mode == "auto":
+        mode = os.environ.get("QLDPC_EXEC_MODE", "auto")
+    if mode == "auto":
+        mode = "perdevice"
+    if mode != "perdevice":
+        raise ValueError(f"exec_mode must be 'auto' or 'perdevice' (the one "
+                         f"sharded mode of this package), got {mode!r}")
+    return mode
+
+
+def default_mesh(device: str, rows: int = 1) -> Mesh:
+    """The mesh a run takes when it is given none: the cards this process
+    owns (`make_mesh()`), or, on the CPU, enough CPU slots per process that
+    the slots of all processes fill `rows` p-rows evenly."""
+    if torch.device(device).type == "cuda":
+        return make_mesh()
+    n_proc = world()[1]
+    return make_mesh(["cpu"] * (rows // math.gcd(rows, n_proc)))
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -156,17 +212,56 @@ class ShotPipeline(nn.Module):
     decoder-failed shots when `cfg.osd_order >= 0` (MS and BP only, as the
     reference: BF and NG give no posterior), and the classifier.
     `osd_shots` counts the shots each side sent to OSD, `osd_syncs` the
-    host syncs of the OSD path (one per `torch.nonzero`)."""
+    host syncs of the OSD path (one per `torch.nonzero`).
 
-    def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig):
+    With `cfg.mesh` the pipeline is the layout of a sharded run: a chunk of
+    `batch` shots is `n_dev` slots of `per_dev` shots (`tiles_per_dev`
+    tiles), the slots of `rows` p-rows share the mesh, and `slots` holds one
+    pipeline per local slot, on its device, with `batch = per_dev`."""
+
+    def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig,
+                 rows: int = 1):
         super().__init__()
-        self.device = _resolve_device(cfg.device)
         self.Hx = (np.asarray(Hx) % 2).astype(np.int8)
         self.Hz = (np.asarray(Hz) % 2).astype(np.int8)
         self.cfg = cfg
         self.n = self.Hx.shape[1]
         dcfg = cfg.decoder_config()
         self.dcfg = dcfg
+        self.mesh = cfg.mesh
+        n_dev = 1
+        if self.mesh is not None:
+            self.exec_mode = _resolve_exec_mode(cfg)
+            if self.mesh.size % rows:
+                raise ValueError(f"mesh_p={rows} must divide the slot count "
+                                 f"{self.mesh.size}")
+            n_dev = self.mesh.size // rows
+        self.batch = cfg.batch_size or _auto_batch(self.n, cfg.shots, n_dev)
+        if self.batch % n_dev:
+            raise ValueError(f"batch_size {self.batch} not divisible by the "
+                             f"slot count {n_dev}")
+        self.n_dev = n_dev
+        self.per_dev = self.batch // n_dev
+        self.tile = _tile_size(self.batch, self.per_dev)
+        self.tiles_per_dev = self.per_dev // self.tile
+        self.tiles_per_chunk = self.batch // self.tile
+        if self.mesh is not None:
+            if (self.mesh.world_size > 1
+                    and any(d.type == "cuda" for d in self.mesh.devices)):
+                _build.load_all()  # rank 0 builds, the other ranks wait
+            slot_cfg = dataclasses.replace(cfg, mesh=None, mesh_p=0,
+                                           batch_size=self.per_dev)
+            self.slots = nn.ModuleList([
+                ShotPipeline(Hx, Hz, dataclasses.replace(slot_cfg,
+                                                         device=str(d)))
+                for d in self.mesh.devices])
+            self.device = self.slots[0].device
+            self.run_slots = per_device_multi_chunk_fn(
+                self.mesh, [s._multi_chunk_body for s in self.slots],
+                _COUNTER_KEYS, rows=rows)
+            return
+        self.slots = None
+        self.device = _resolve_device(cfg.device)
 
         # X errors are decoded through Hz, Z errors through Hx. BF and NG
         # have no schedule.
@@ -204,10 +299,6 @@ class ShotPipeline(nn.Module):
                 self.register_buffer(name, torch.as_tensor(
                     np.ascontiguousarray(H.T), dtype=torch.float32,
                     device=self.device))
-
-        self.batch = cfg.batch_size or _auto_batch(self.n, cfg.shots)
-        self.tile = _tile_size(self.batch)
-        self.tiles_per_chunk = self.batch // self.tile
 
     def _sample_chunk(self, tile_keys: torch.Tensor, p):
         """Channel sampling for one chunk. With `cfg.validate_encoding` the
@@ -388,41 +479,100 @@ def _decoder_choice(dec: nn.Module) -> str:
     return type(first).__name__ + stacked
 
 
-def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p: float,
-             p_index: int) -> str:
+def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p, p_index: int,
+             kind: str = "p", n_p: int = 0) -> str:
     """Checkpoint identity digest: everything that determines the counter
     stream and its chunk layout. The code itself (Hx/Hz bytes), the fully
     resolved decoder config and the decoder each side resolved to (the
     kernel choice included), the OSD order, layer_compat, the chunk layout
-    (batch and RNG tile size: `chunks_done` only means something under the
-    layout that wrote it), shots, seed, validate_encoding, p and the
-    p-index. A resume after a
+    (batch, RNG tile size and slot count: `chunks_done` only means
+    something under the layout that wrote it), shots, seed,
+    validate_encoding and where the counts belong: for `kind` "p" the p and
+    its p-index, for "sweep" a block of a p-sweep (`p` the block's points,
+    `p_index` its first point's index, `n_p` the p-rows). A resume after a
     change to any of these misses the old checkpoint instead of reusing
     stale counts. The device is not part of it: counters do not depend on
     it for MS, and for BP differ only as two runs of a Monte-Carlo estimate
     do."""
+    first = pipe.slots[0] if pipe.slots is not None else pipe
     payload = {
+        "kind": kind,
         "Hx_shape": list(pipe.Hx.shape), "Hz_shape": list(pipe.Hz.shape),
         "Hx": hashlib.sha256(pipe.Hx.tobytes()).hexdigest(),
         "Hz": hashlib.sha256(pipe.Hz.tobytes()).hexdigest(),
         "dcfg": dataclasses.asdict(pipe.dcfg),
-        "decoders": [_decoder_choice(pipe.dec_x), _decoder_choice(pipe.dec_z)],
+        "decoders": [_decoder_choice(first.dec_x),
+                     _decoder_choice(first.dec_z)],
         "osd_order": int(cfg.osd_order),
         "layer_compat": bool(cfg.layer_compat),
-        "batch": pipe.batch, "tile": pipe.tile,
+        "batch": pipe.batch, "tile": pipe.tile, "n_dev": pipe.n_dev,
         "shots": cfg.shots, "seed": int(seed),
         "validate_encoding": bool(cfg.validate_encoding),
-        "p": f"{p:.17e}", "p_index": int(p_index),
     }
+    if kind == "p":
+        payload.update(p=f"{p:.17e}", p_index=int(p_index))
+    else:
+        payload.update(blk0=int(p_index), n_p=int(n_p),
+                       ps=[f"{v:.17e}" for v in p])
     blob = json.dumps(payload, sort_keys=True, default=str)
     return hashlib.sha256(blob.encode()).hexdigest()[:20]
+
+
+def _slot_layout(pipe: ShotPipeline, shots: int, c0: int, g: int, key_rows):
+    """Keys and valid shots of chunks c0 .. c0 + g - 1 of a `shots`-shot
+    run for every global slot of a meshed pipeline: `keys[s]` (g,
+    tiles_per_dev, 2) and `n_valids` (slots, g), row-major over (p-row,
+    slot of the row), p-row r on key `key_rows[r]`. Slot d of chunk c owns
+    global tiles c tpc + d tpd + [0, tpd), and its valid shots are clipped
+    to the run's end."""
+    n_dev, per_dev, tpd = pipe.n_dev, pipe.per_dev, pipe.tiles_per_dev
+    tpc = pipe.tiles_per_chunk
+    keys = []
+    for key in key_rows:
+        row = chunk_keys(key, c0 * tpc, g * tpc).reshape(g, n_dev, tpd, 2)
+        keys += [row[:, d] for d in range(n_dev)]
+    base = (c0 + np.arange(g)[None, :]) * pipe.batch
+    nv = np.clip(shots - base - np.arange(n_dev)[:, None] * per_dev, 0,
+                 per_dev)
+    return keys, np.tile(nv, (len(key_rows), 1))
+
+
+def _key_groups(count, totals: torch.Tensor, start_chunk: int,
+                n_chunks: int, shots: int, batch: int, after_group):
+    """Add the counters of chunks start_chunk .. n_chunks - 1 to `totals`,
+    one key group (`_KEY_GROUP_CHUNKS` chunks) at a time: `count(c, g,
+    first)` -> the int64 counters of chunks c .. c + g - 1, read after the
+    devices are done; `after_group(chunks_done)` after each group. The first
+    chunk runs on its own and the warm window starts after it (kernel
+    builds land there). Returns (wall seconds, warm seconds or NaN, warm
+    shots)."""
+    t0 = time.perf_counter()
+    t_first = None
+    warm_shots = 0
+    for c0 in range(start_chunk, n_chunks, _KEY_GROUP_CHUNKS):
+        c, c_end = c0, min(c0 + _KEY_GROUP_CHUNKS, n_chunks)
+        if t_first is None:
+            totals += count(c, 1, True)
+            t_first = time.perf_counter()
+            c += 1
+        if c < c_end:
+            totals += count(c, c_end - c, False)
+            warm_shots += min(shots, c_end * batch) - c * batch
+        after_group(c_end)
+    t_end = time.perf_counter()
+    warm = t_end - t_first if warm_shots else float("nan")
+    return t_end - t0, warm, warm_shots
 
 
 def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
                cfg: Optional[SimConfig] = None,
                pipeline: Optional[ShotPipeline] = None,
                p_index: int = 0) -> PPointResult:
-    """Monte-Carlo qBLER estimate at one depolarization probability."""
+    """Monte-Carlo qBLER estimate at one depolarization probability. With
+    `cfg.mesh` every chunk is split over the slots of the mesh (all
+    processes of it call this together); the counters are the unmeshed
+    run's. The first chunk is left out of the warm window; under several
+    processes every rank times its own run after the reduction."""
     cfg = cfg or SimConfig()
     pipe = pipeline or ShotPipeline(Hx, Hz, cfg)
     shots = cfg.shots
@@ -431,57 +581,141 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
     tpc = pipe.tiles_per_chunk
     seed = cfg.rng_seed if cfg.rng_seed is not None else 0
     key = fold_in(prng_key(seed, device=pipe.device), p_index)
+    progress = cfg.progress and world()[0] == 0
 
     store = CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     ckpt_id = (f"p{p_index}_{cfg.dec_type}{cfg.dec_schedule}_"
                + _ckpt_id(pipe, cfg, seed, p, p_index))
-    totals = {k: 0 for k in _COUNTER_KEYS}
+    totals = torch.zeros(len(_COUNTER_KEYS), dtype=torch.int64)
     start_chunk = 0
     if store is not None:
         saved = store.load(ckpt_id)
         if saved is not None:
-            totals, start_chunk = saved
+            totals = torch.tensor([saved[0][k] for k in _COUNTER_KEYS])
+            start_chunk = saved[1]
 
-    t0 = time.perf_counter()
-    t_first = None  # set after the first chunk (kernel builds land there)
-    warm_shots = 0
-    for c0 in range(start_chunk, n_chunks, _KEY_GROUP_CHUNKS):
-        g = min(_KEY_GROUP_CHUNKS, n_chunks - c0)
+    def count(c, g, first):
+        if pipe.slots is not None:
+            keys, nv = _slot_layout(pipe, shots, c, g, [key])
+            return pipe.run_slots(keys, [p], nv)[0]
         # global tile stream: chunk c owns tiles [c * tpc, (c + 1) * tpc)
-        keys = chunk_keys(key, c0 * tpc, g * tpc).reshape(g, tpc, 2)
-        n_valids = [min(batch, shots - c * batch) for c in range(c0, c0 + g)]
-        if t_first is None:
-            counts = pipe._chunk_body(keys[0], p, n_valids[0])
-            for k in _COUNTER_KEYS:
-                totals[k] += int(counts[k])  # waits for the device
-            t_first = time.perf_counter()
-            keys, n_valids = keys[1:], n_valids[1:]
-        if n_valids:
-            counts = pipe._multi_chunk_body(keys, p, n_valids)
-            for k in _COUNTER_KEYS:
-                totals[k] += int(counts[k])  # waits for the device
-            warm_shots += sum(n_valids)
+        keys = chunk_keys(key, c * tpc, g * tpc).reshape(g, tpc, 2)
+        n_valids = [min(batch, shots - i * batch) for i in range(c, c + g)]
+        counts = (pipe._chunk_body(keys[0], p, n_valids[0]) if first
+                  else pipe._multi_chunk_body(keys, p, n_valids))
+        return torch.stack([counts[k].to(torch.int64)
+                            for k in _COUNTER_KEYS]).cpu()
+
+    def after_group(chunks_done):
         if store is not None:
-            store.save(ckpt_id, totals, c0 + g)
-        if cfg.progress:
-            print(f"\r(p={p:5.2e}) decoded {min((c0 + g) * batch, shots)}"
+            store.save(ckpt_id, dict(zip(_COUNTER_KEYS, totals.tolist())),
+                       chunks_done)
+        if progress:
+            print(f"\r(p={p:5.2e}) decoded {min(chunks_done * batch, shots)}"
                   f"/{shots} shots", end="", flush=True)
-    t_end = time.perf_counter()
-    if cfg.progress:
+
+    wall, warm, warm_shots = _key_groups(count, totals, start_chunk,
+                                         n_chunks, shots, batch, after_group)
+    if progress:
         print()
-    warm_elapsed = ((t_end - t_first) if (t_first is not None and warm_shots)
-                    else float("nan"))
+    return _result(p, shots, totals, wall, warm, warm_shots)
+
+
+def _result(p, shots, totals, wall, warm, warm_shots) -> PPointResult:
+    """The result of one p-point from its (9,) counters."""
+    counts = dict(zip(_COUNTER_KEYS, totals.tolist()))
     return PPointResult(
         p=float(p),
         shots=shots,
-        counters={k: totals[k] for k in _COUNTER_KEYS
+        counters={k: counts[k] for k in _COUNTER_KEYS
                   if not k.startswith("nIter")},
-        avg_iterations_x=totals["nIterAccX"] / float(shots),
-        avg_iterations_z=totals["nIterAccZ"] / float(shots),
-        wall_time_s=t_end - t0,
-        warm_time_s=warm_elapsed,
+        avg_iterations_x=counts["nIterAccX"] / float(shots),
+        avg_iterations_z=counts["nIterAccZ"] / float(shots),
+        wall_time_s=wall,
+        warm_time_s=warm,
         warm_shots=warm_shots,
     )
+
+
+def simulate_sweep(Hx: np.ndarray, Hz: np.ndarray, ps: Sequence[float],
+                   cfg: SimConfig) -> List[PPointResult]:
+    """p-sweep with the p-points as a second axis of slots: the global
+    slots of `cfg.mesh` (or of `default_mesh`) form a (cfg.mesh_p, slots /
+    mesh_p) grid, row-major, and a block of mesh_p p-points runs at once,
+    point i of the block on row i and on its own key branch `fold_in(seed
+    key, blk0 + i)`, its chunks split over the row's slots as `simulate_p`
+    splits them over a mesh. A short last block leaves its last rows empty
+    (no valid shot). Per-p counters equal the serial sweep's; they are
+    summed as one (mesh_p, 9) tensor per key group, and with
+    `cfg.checkpoint_dir` saved per (p-block, key group).
+
+    Timing: a block's points run together, so `wall_time_s` is the block's
+    time divided over its points (the sum over a sweep is its run time),
+    while `warm_time_s` is the block's undivided time after its first chunk
+    (the port's warm window), so that warm shots/s is the rate at which a
+    point's own shots were decoded on its row. A (1, 1) grid is the serial
+    loop."""
+    n_p = int(cfg.mesh_p)
+    if n_p < 1:
+        raise ValueError(f"simulate_sweep needs mesh_p >= 1, got {n_p}")
+    mesh = cfg.mesh if cfg.mesh is not None else default_mesh(cfg.device, n_p)
+    if mesh.size % n_p:
+        raise ValueError(f"mesh_p={n_p} must divide the slot count "
+                         f"{mesh.size}")
+    ps = np.asarray(ps, dtype=np.float64)
+    if n_p == 1 and mesh.size == 1:
+        scfg = dataclasses.replace(cfg, mesh=None, mesh_p=0,
+                                   device=str(mesh.devices[0]))
+        pipe = ShotPipeline(Hx, Hz, scfg)
+        return [simulate_p(Hx, Hz, pT, scfg, pipeline=pipe, p_index=i)
+                for i, pT in enumerate(ps)]
+    pipe = ShotPipeline(Hx, Hz, dataclasses.replace(cfg, mesh=mesh),
+                        rows=n_p)
+    shots, batch = cfg.shots, pipe.batch
+    n_chunks = -(-shots // batch)
+    seed = cfg.rng_seed if cfg.rng_seed is not None else 0
+    base_key = prng_key(seed, device=pipe.device)
+    progress = cfg.progress and world()[0] == 0
+    store = CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    results: List[PPointResult] = []
+    for blk0 in range(0, ps.size, n_p):
+        blk = ps[blk0:blk0 + n_p]
+        # the rows past a short block's end repeat its last point
+        last = [min(i, blk.size - 1) for i in range(n_p)]
+        p_rows = [float(blk[i]) for i in last]
+        key_rows = [fold_in(base_key, blk0 + i) for i in last]
+        totals = torch.zeros((n_p, len(_COUNTER_KEYS)), dtype=torch.int64)
+        ckpt_id = (f"sweepblk{blk0}_{cfg.dec_type}{cfg.dec_schedule}_"
+                   + _ckpt_id(pipe, cfg, seed, blk, blk0, kind="sweep",
+                              n_p=n_p))
+        start_chunk = 0
+        if store is not None:
+            saved = store.load(ckpt_id)
+            if saved is not None:
+                totals = torch.tensor([saved[0][k] for k in _COUNTER_KEYS]).T
+                start_chunk = saved[1]
+
+        def count(c, g, first):
+            keys, nv = _slot_layout(pipe, shots, c, g, key_rows)
+            nv[blk.size * pipe.n_dev:] = 0  # the rows past the block's end
+            return pipe.run_slots(keys, p_rows, nv)
+
+        def after_group(chunks_done):
+            if store is not None:
+                store.save(ckpt_id, dict(zip(_COUNTER_KEYS, totals.T.tolist())),
+                           chunks_done)
+            if progress:
+                print(f"\r(p-block {blk0 // n_p}) decoded "
+                      f"{min(chunks_done * batch, shots)}/{shots} shots x "
+                      f"{blk.size} p", end="", flush=True)
+
+        wall, warm, warm_shots = _key_groups(
+            count, totals, start_chunk, n_chunks, shots, batch, after_group)
+        if progress:
+            print()
+        results += [_result(pT, shots, totals[i], wall / blk.size, warm,
+                            warm_shots) for i, pT in enumerate(blk)]
+    return results
 
 
 def simulate(HxFile: str, HzFile: str, p: Sequence[float],
@@ -490,8 +724,10 @@ def simulate(HxFile: str, HzFile: str, p: Sequence[float],
              rngSeed: Optional[int] = None, **kwargs) -> List[PPointResult]:
     """p-sweep with the reference simulator's signature and results table
     (the reference's `simulate`): one pipeline, the p-points one after
-    another, each on its own key branch `p_index` = position in `p`.
-    `kwargs` are further `SimConfig` fields; `device` defaults to "cuda"."""
+    another, each on its own key branch `p_index` = position in `p`; with
+    `mesh_p` the points run `mesh_p` at a time (`simulate_sweep`), with the
+    same counters. `kwargs` are further `SimConfig` fields; `device`
+    defaults to "cuda". Under several processes rank 0 prints the table."""
     from qldpcsim_torch.codes.loader import load_matrix
 
     Hx = load_matrix(HxFile)
@@ -503,8 +739,12 @@ def simulate(HxFile: str, HzFile: str, p: Sequence[float],
     cfg = SimConfig(shots=shots, dec_type=decType,
                     dec_iterations=decIterations, dec_schedule=decSchedule,
                     osd_order=OSDorder, rng_seed=rngSeed, **kwargs)
-    pipe = ShotPipeline(Hx, Hz, cfg)
-    results = [simulate_p(Hx, Hz, pT, cfg, pipeline=pipe, p_index=i)
-               for i, pT in enumerate(p)]
-    print(format_results_table(results))
+    if cfg.mesh_p:
+        results = simulate_sweep(Hx, Hz, p, cfg)
+    else:
+        pipe = ShotPipeline(Hx, Hz, cfg)
+        results = [simulate_p(Hx, Hz, pT, cfg, pipeline=pipe, p_index=i)
+                   for i, pT in enumerate(p)]
+    if world()[0] == 0:
+        print(format_results_table(results))
     return results

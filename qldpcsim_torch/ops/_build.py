@@ -20,6 +20,14 @@ FMA: the kernels promise the same float32 roundings as their plain versions.
 source on all cores (the six sources at once: 13.7 s against 22.9 s on the
 8-core host of an H100, nvcc 12.9). A missing nvcc or a failed build raises;
 nothing falls back.
+
+Under a `torch.distributed` process group `load_all` lets rank 0 build while
+the other ranks wait, so that N ranks do not run N nvcc per source.
+
+Every launch acts on the calling thread's current CUDA device (the
+`<<<...>>>` and `cudaFuncSetAttribute` of the C side), so each wrapper calls
+`require_current` on its tensors' card first: a tensor on another card
+raises instead of launching on the wrong one.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ BUILD_DIR_ENV = "QLDPC_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-split-compile=0", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# every source of the port, one library each
+SOURCES = ("channel", "ms_qc", "gf2_elim", "seq_qc", "general_h", "flood_qc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds the build took, nvcc's output); filled by builds in this
@@ -117,13 +128,51 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_all(names: Sequence[str]) -> None:
-    """Build the named sources at once (one nvcc process each), then load
-    them: a cold start waits for the slowest build, not for their sum."""
+def _build_many(names: Sequence[str]) -> None:
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         list(pool.map(_build, names))
+
+
+def load_all(names: Sequence[str] = SOURCES) -> None:
+    """Build the named sources at once (one nvcc process each), then load
+    them: a cold start waits for the slowest build, not for their sum.
+    Under a process group of several ranks, rank 0 builds and the others
+    wait for it (a broadcast of its outcome), then every rank loads; a
+    failed build raises on every rank."""
+    import torch.distributed as dist
+
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        _build_many(names)
+    else:
+        import torch
+
+        ok = torch.ones(1, dtype=torch.int64)
+        err = None
+        if dist.get_rank() == 0:
+            try:
+                _build_many(names)
+            except Exception as exc:  # every rank learns of it below
+                ok.zero_()
+                err = exc
+        dist.broadcast(ok, src=0)
+        if err is not None:
+            raise err
+        if not int(ok):
+            raise RuntimeError("rank 0 failed to build the CUDA kernels")
     for name in names:
         load(name)
+
+
+def require_current(device) -> None:
+    """Raise unless `device` (a CUDA device) is the calling thread's current
+    one, where a launch would land."""
+    import torch
+
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(f"a kernel for {device} launched while cuda:"
+                           f"{current} is the current device; call "
+                           f"torch.cuda.set_device({device.index}) first")
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:

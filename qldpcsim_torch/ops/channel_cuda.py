@@ -237,6 +237,7 @@ def _launch(keys: torch.Tensor, p, n: int, tile: int, tabs):
     t1, t2, t3 = thresholds(p)
     # the raw handle: torch.cuda.current_stream() costs a chunk's launch
     # several microseconds of host time
+    _build.require_current(dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     if tabs is None:
         tables = [None, None, 0, None, None, 0, None, None]

@@ -251,6 +251,7 @@ def flood_qc_cuda(dec, syn: torch.Tensor, lch: float):
     post = torch.empty((B, tabs.n), dtype=torch.float32, device=dev)
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.require_current(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.L, tabs.m_b, tabs.n_b, deg,

@@ -210,6 +210,7 @@ def general_h_cuda(dec: "GHDecoder", syn_T: torch.Tensor, lch: float):
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     state = dec.scratch(B, dev) if dec.state_on_device else None
     n_col = dec.col_edge.numel()
+    _build.require_current(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn_T.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.m, tabs.n, tabs.dmax,

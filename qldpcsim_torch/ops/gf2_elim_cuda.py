@@ -220,6 +220,7 @@ def eliminate_cuda(colsP: torch.Tensor, r: int, rW: int,
     fn = lib.gf2_elim
     fn.restype = ctypes.c_int
     fn.argtypes = ARGTYPES
+    _build.require_current(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(colsP.data_ptr(), B, n, mW, r, rW, pl.stride, pl.threads,
             pl.lanes, int(pl.state_on_device),

@@ -223,6 +223,7 @@ def ms_qc_cuda(dec: "QCDecoder", syn_T: torch.Tensor, lch: float):
                             device=dev)
     n_iter = torch.empty(B, dtype=torch.int32, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.require_current(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn_T.data_ptr(), syn_T.stride(0), syn_T.stride(1), B,
             KINDS.index(dec.kind), lch, dec.beta, dec.clamp, dec.max_iter,

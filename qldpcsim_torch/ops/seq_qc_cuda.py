@@ -309,6 +309,7 @@ def seq_qc_cuda(dec: "SeqQCDecoder", syn_T: torch.Tensor, lch: float):
     state = dec.scratch(B, dev) if dec.state_on_device else None
     spb = shots_per_block(4 * dec.table_words,
                           0 if state is not None else 4 * dec.state_words)
+    _build.require_current(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn_T.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.L, tabs.m_b, tabs.n_b,

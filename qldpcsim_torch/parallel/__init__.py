@@ -1,5 +1,11 @@
-"""Key layout of the shot stream (one process, one device in this slice)."""
+"""Shot sharding over slots and processes, counter reduction, multi-process
+initialisation, and the key layout of the shot stream (port of
+`qldpcsim_tpu/parallel`)."""
 
-from qldpcsim_torch.parallel.keys import chunk_keys
+from qldpcsim_torch.parallel.mesh import (
+    make_mesh,
+    chunk_keys,
+    multihost_init,
+)
 
-__all__ = ["chunk_keys"]
+__all__ = ["make_mesh", "chunk_keys", "multihost_init"]

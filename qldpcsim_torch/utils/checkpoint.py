@@ -1,5 +1,6 @@
 """Per-p-point counter checkpoints for sweeps that can be killed (port of
-`qldpcsim_tpu/utils/checkpoint.py`; one process, one writer).
+`qldpcsim_tpu/utils/checkpoint.py`). One writer: the process itself, or
+rank 0 of a `torch.distributed` process group; every rank reads.
 
 Counters are integers and chunk keys derive from the global chunk index, so
 a resume is idempotent: a rerun of a completed chunk would give the same
@@ -13,6 +14,8 @@ import os
 import tempfile
 from typing import Dict, Optional, Tuple
 
+import torch.distributed as dist
+
 
 class CheckpointStore:
     def __init__(self, directory: str):
@@ -23,6 +26,8 @@ class CheckpointStore:
         return os.path.join(self.dir, f"{run_id}.json")
 
     def save(self, run_id: str, counters: Dict[str, int], chunks_done: int):
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         payload = {"counters": counters, "chunks_done": chunks_done}
         # Atomic write: temp file + rename, so a kill mid-write never
         # corrupts the checkpoint.

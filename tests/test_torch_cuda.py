@@ -1037,3 +1037,34 @@ def test_simulate_p_on_card_equals_cpu(cuda_device):
     assert on_card.counters == on_cpu.counters
     assert on_card.avg_iterations_x == on_cpu.avg_iterations_x
     assert on_card.avg_iterations_z == on_cpu.avg_iterations_z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("osd_order", [-1, 2])
+def test_two_slot_mesh_on_one_card_equals_the_unmeshed_run(cuda_device,
+                                                           osd_order):
+    """A 2-slot mesh of one card (a host thread per slot) gives the
+    unmeshed run's counters, each slot launching kernel A once a chunk."""
+    from qldpcsim_torch.parallel.mesh import make_mesh
+
+    c = get_code("lp04_0")
+    cfg = SimConfig(shots=1000, dec_type="MS", dec_iterations=30,
+                    dec_schedule="L", osd_order=osd_order, batch_size=512,
+                    rng_seed=3, device="cuda")
+    whole = simulate_p(c.Hx, c.Hz, 0.08, cfg)
+    before = channel_cuda.LAUNCHES
+    meshed = simulate_p(c.Hx, c.Hz, 0.08, dataclasses.replace(
+        cfg, mesh=make_mesh(["cuda:0", "cuda:0"])))
+    assert channel_cuda.LAUNCHES == before + 4  # 2 chunks x 2 slots
+    assert meshed.counters == whole.counters
+    assert meshed.avg_iterations_x == whole.avg_iterations_x
+
+
+@pytest.mark.cuda
+def test_launch_on_the_current_card_passes_the_device_check(cuda_device):
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.require_current(dev)
+    keys = chunk_keys(fold_in(prng_key(1, device=dev), 0), 0, 2)
+    before = channel_cuda.LAUNCHES
+    channel_cuda.sample_tiles_cuda(keys, 0.05, 84, 64)
+    assert channel_cuda.LAUNCHES == before + 1

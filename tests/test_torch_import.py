@@ -44,6 +44,8 @@ print(",".join(bad))
     "import qldpcsim_torch.cli, qldpcsim_torch.__main__; "
     "from qldpcsim_torch.compat import decoders, simulator, gf2math, "
     "PCMlibrary; import qldpcsim_torch.compat.PMClibrary",
+    "import qldpcsim_torch.parallel.mesh, qldpcsim_torch.codes.export_data; "
+    "from qldpcsim_torch import simulate_sweep",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -65,13 +67,16 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_import_in_source():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_mesh.py"]
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"qldpcsim_torch/cli.py", "qldpcsim_torch/__main__.py",
             "qldpcsim_torch/compat.py", "qldpcsim_torch/channel/encoder.py",
             "qldpcsim_torch/utils/profiling.py",
-            "qldpcsim_torch/ops/flood_qc_cuda.py"} <= names
+            "qldpcsim_torch/ops/flood_qc_cuda.py",
+            "qldpcsim_torch/parallel/mesh.py",
+            "qldpcsim_torch/codes/export_data.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
         for mod in _imported_modules(f):
