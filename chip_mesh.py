@@ -21,7 +21,12 @@ several cards have:
      launcher's environment set by this script, each rank owning the card
      of its local rank): the flagship at 1,048,576 shots, rank 0's counters
      equal to the one-process run's, each rank's launches counted, warm
-     shots/s with `--batch 4096` and with 4096 shots per card;
+     shots/s with `--batch 4096` and with 4096 shots per card; then the
+     same command with no launcher environment, which starts one process
+     per card itself (`qldpcsim_torch/parallel/launch.py`): its counters
+     equal, one launch-count file per card (one per process), and its warm
+     shots/s printed beside the one-process (thread) row and the launched
+     row;
   5. config 4 (the Tanner code, MS-S-30, p = 0.01, 0.04, 0.07, 0.1, 32,768
      shots each) with `--mesh-p 2` over the same processes: per-p counters
      equal to the serial `simulate` on one card.
@@ -50,6 +55,8 @@ C4_FILES = ("data/Hx_T.npy", "data/Hz_T.npy")
 C4_P = [0.01, 0.04, 0.07, 0.1]
 C4_ITER, C4_SHOTS = 30, 8 * BATCH
 RANK_TIMEOUT_S = 300
+LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+               "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
 
 def check(cond, what):
@@ -63,6 +70,27 @@ def cards_line():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     lines = out.stdout.strip().splitlines()
     return f"{len(lines)} x " + "; ".join(sorted(set(lines)))
+
+
+def run_self(n, args, counts_path):
+    """`python3 -m qldpcsim_torch ARGS` in one process with no launcher
+    environment: it must start n ranks itself (one launch-count file per
+    rank, rank n - 1 the last) and exit 0 within RANK_TIMEOUT_S. Its stdout
+    and each rank's kernel launches."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    env.update(PYTHONPATH=HERE, QLDPC_LAUNCH_COUNTS=counts_path)
+    p = subprocess.run([sys.executable, "-m", "qldpcsim_torch", *args,
+                        "--quiet"], cwd=HERE, env=env, text=True,
+                       capture_output=True, timeout=RANK_TIMEOUT_S)
+    check(p.returncode == 0, f"--mesh alone: rc {p.returncode}\n"
+          f"{p.stderr[-3000:]}")
+    check(not os.path.exists(f"{counts_path}.{n}"),
+          f"--mesh alone: no more than {n} ranks")
+    launches = []
+    for rank in range(n):
+        with open(f"{counts_path}.{rank}") as f:
+            launches.append(json.load(f))
+    return p.stdout, launches
 
 
 def run_ranks(n, args, counts_path):
@@ -240,6 +268,34 @@ def main():
               f"{ref_timed.shots_per_s_warm:.1f}; {secs:.1f} s with the "
               f"processes' start); kernel A launches per rank "
               f"{[la['channel'] for la in launches]}  [{cards}]")
+        # the same command line with no launcher around it: --mesh starts
+        # one process per card itself
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "out.jsonl")
+            t0 = time.perf_counter()
+            stdout, launches_s = run_self(n_cards, [
+                *flag, "--batch", str(batch), "--out", out],
+                os.path.join(tmp, "launches"))
+            secs_s = time.perf_counter() - t0
+            with open(out) as f:
+                row_s = json.loads(f.readline())
+        check(stdout.count("SIMULATION RESULTS") == 1,
+              "--mesh alone: one table, rank 0's")
+        check({k: row_s[k] for k in ref_timed.counters}
+              == ref_timed.counters,
+              f"--mesh alone, chunks of {batch}: counters equal the "
+              "one-process run's")
+        for rank, la in enumerate(launches_s):
+            check(la["channel syndromes"] == TIMED_SHOTS // batch
+                  and la["ms_qc MS"] > 0,
+                  f"--mesh alone, rank {rank}: kernels A and B launched")
+        print(f"--mesh alone, chunks of {batch}: {len(launches_s)} "
+              f"processes, counters equal; warm "
+              f"{row_s['shots_per_s_warm']:.1f} shots/s on rank 0 "
+              f"({secs_s:.1f} s with the processes' start), beside one "
+              f"process with {n_cards} slot threads "
+              f"{one_process[(n_cards, batch)]:.1f} and {n_cards} processes "
+              f"launched here {row['shots_per_s_warm']:.1f}  [{cards}]")
 
     phase(f"5 config 4 with --mesh-p 2 over {n_cards} processes")
     files4 = [os.path.join(HERE, f) for f in C4_FILES]

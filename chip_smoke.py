@@ -155,6 +155,31 @@ Phases (any failure raises and exits non-zero):
      in a process of its own (4096 shots), its table and --out file parsed;
  24. `validate_encoding=True` on the flagship's first two chunks: counters
      equal to phase 8's; one call of each `compat` decoder shim on the card;
+ 25. kernel B with the bf16 state (QLDPC_QC_DTYPE=bf16) against its plain
+     bf16 version, bit for bit: MS-L-50 at the flagship's shape (lp118_0
+     side X, 4096 shots, p = 0.05), MS-F-99 and BP-F-99 at config 5's,
+     MS-L-50 with the check after every layer group, and a synthetic lift
+     whose state lies in device memory in bf16 too; each timed beside the
+     float32 kernel, with the shared memory per shot and the blocks per SM
+     of both (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+ 26. kernel F with the bf16 state against its plain bf16 version, MS and
+     BP at config 5's shape, timed beside float32, and a lift that kernel F
+     takes only in bf16 (float32: kernel B, state in device memory);
+ 27. kernel B with the stacked-update writeback (QLDPC_QC_VEC=1) against
+     its plain version, MS-L-50 and MS-F-50 on lp118_0, both mappings and
+     both places of the state, timed beside the per-slot writeback, and the
+     shots whose decisions differ from it;
+ 28. the main paths with the variants, through `simulate_p` (65,536 shots
+     each, the flags in the environment when the pipeline is built): the
+     flagship in bf16, config 5 in bf16 on kernel B and with
+     QLDPC_QC_STACKED=1 on kernel F, MS-F-50 in bf16 on kernel F, and the
+     flagship with the writeback; each with its decoder choice, its
+     launches (kernel A fused once a chunk, the variant's own count), qBLER
+     within 4 sigma of the float32 run's, a timed run of 1,048,576 shots,
+     and its first chunks on the CPU (plain versions) against the card:
+     counters equal for MS (two chunks), qBLER within 4 sigma for BP (one
+     chunk); the writeback's
+     first chunks beside the default run's (phase 8);
  M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
      per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
      A launched once per chunk and slot, warm shots/s beside phase 7's and a
@@ -313,7 +338,8 @@ OLD = {
 
 def synthetic_lift(name):
     """Lifted codes the library has none of: block-rows of degrees 2 to 5
-    (`irregular`) and a uniform degree of 12 (`deg12`)."""
+    (`irregular`), a uniform degree of 12 (`deg12`), and 60 block-rows of
+    degree 14 over 120 variable blocks of lift 64 (`oversize`)."""
     import numpy as np
 
     from qldpcsim_torch.ops.qc import QCStructure
@@ -321,11 +347,29 @@ def synthetic_lift(name):
     rng = np.random.default_rng(21)
     if name == "irregular":
         L, m_b, n_b, degs = 9, 6, 10, [2, 5, 3, 4, 5, 2]
-    else:
+    elif name == "deg12":
         L, m_b, n_b, degs = 8, 3, 14, [12, 12, 12]
+    else:   # "oversize": a state beyond a block's shared memory, bf16 too
+        L, m_b, n_b, degs = 64, 60, 120, [14] * 60
     shifts = np.full((m_b, n_b), -1)
     for i, d in enumerate(degs):
         shifts[i, rng.choice(n_b, d, replace=False)] = rng.integers(0, L, d)
+    return QCStructure(L=L, shifts=shifts)
+
+
+def bf16_only_lift():
+    """A lift (L 128, 27 x 8 blocks, degree 8) whose float32 state needs
+    device memory under kernel B and is too large for kernel F, while its
+    bf16 state fits a block in both."""
+    import numpy as np
+
+    from qldpcsim_torch.ops.qc import QCStructure
+
+    L, m_b, n_b, deg = 128, 27, 8, 8
+    shifts = np.full((m_b, n_b), -1)
+    for i in range(m_b):
+        shifts[i, [(3 * i + t) % n_b for t in range(deg)]] = [
+            (i + 2 * t) % L for t in range(deg)]
     return QCStructure(L=L, shifts=shifts)
 
 
@@ -516,8 +560,11 @@ def main():
         channel_cuda.LAUNCHES = 0
         channel_cuda.SYN_LAUNCHES = 0
         gf2_elim_cuda.LAUNCHES = 0
+        ms_qc_cuda.VEC_LAUNCHES = 0
         for k in ms_qc_cuda.LAUNCHES:
             ms_qc_cuda.LAUNCHES[k] = 0
+            ms_qc_cuda.BF16_LAUNCHES[k] = 0
+            flood_qc_cuda.BF16_LAUNCHES[k] = 0
             seq_qc_cuda.LAUNCHES[k] = 0
             general_h_cuda.LAUNCHES[k] = 0
             flood_qc_cuda.LAUNCHES[k] = 0
@@ -2180,6 +2227,232 @@ def main():
     print(f"compat launches {la}")
     check(la["ms_qc MS"] > 0 and la["ms_qc BP"] > 0 and la["gf2_elim"] > 0,
           "the compat shims ran kernels B and C on the card")
+
+    # 25. kernel B with the bf16 state against its plain version
+    phase("25 kernel B with the bf16 state (QLDPC_QC_DTYPE=bf16), MS and BP")
+    from qldpcsim_torch.engine.montecarlo import _decoder_choice
+
+    BF16 = torch.bfloat16
+    syn5_T = syn5.T.contiguous()
+
+    def variant(H_or_st, kind_, max_iter, sched, dtype=BF16, vec=False,
+                stacked=False, chk="iter"):
+        """A QC decoder on the card with the state's dtype, the writeback
+        and kernel F given here (the environment is not read)."""
+        if isinstance(H_or_st, np.ndarray):
+            st, layers = detect_qc(H_or_st), build_layers(H_or_st, sched)
+        else:
+            st, layers = H_or_st, None
+        return ms_qc_cuda.make_qc_decoder(
+            st, DecoderConfig(dec_type=kind_, max_iter=max_iter,
+                              schedule=sched, qc_check_every=chk),
+            layers=layers, device=dev, stacked=stacked, dtype=dtype, vec=vec)
+
+    def smem_line(dec):
+        """Shared memory per shot (one block) and blocks per SM."""
+        words = dec.table_words + (0 if dec.state_on_device
+                                   else dec.state_words)
+        return (f"{4 * words} B shared per shot, "
+                f"{ms_qc_cuda.blocks_per_sm(dec)} blocks per SM")
+
+    bf_b, worst_bf = {}, {"MS": 0.0, "BP": 0.0}
+    for label, H, kind_, iters, sched, syn_T, lch_, chk in (
+            (f"MS-{SCHEDULE}-{MAX_ITER} (the flagship's shape)", Hz, "MS",
+             MAX_ITER, SCHEDULE, syn50, lch, "iter"),
+            (f"MS-F-{C5_ITER} (config 5's shape)", Hz, "MS", C5_ITER, "F",
+             syn5_T, lch5, "iter"),
+            (f"BP-F-{C5_ITER} (config 5's shape)", Hz, "BP", C5_ITER, "F",
+             syn5_T, lch5, "iter"),
+            (f"MS-{SCHEDULE}-{MAX_ITER}, check after every layer group", Hz,
+             "MS", MAX_ITER, SCHEDULE, syn50, lch, "layer")):
+        d16 = variant(H, kind_, iters, sched, chk=chk)
+        d32 = variant(H, kind_, iters, sched, dtype=torch.float32, chk=chk)
+        check(d16.track_mis == (chk == "layer") and not d16.state_on_device,
+              f"bf16 {label}: the decoder's decisions")
+        out = compare_qc(f"ms_qc {kind_} bf16 {label} side X", d16, syn_T,
+                         lch_, 5)
+        check(out[3], f"kernel B {kind_} bf16 == plain bf16 ({label})")
+        worst_bf[kind_] = max(worst_bf[kind_], out[2])
+        f32_ms = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(d32, syn_T, lch_), 5)
+        print(f"  bf16 {out[0]:.4f} ms against float32 {f32_ms:.4f} ms; "
+              f"bf16: {smem_line(d16)}; float32: {smem_line(d32)}  [{smi}]")
+        bf_b.setdefault(kind_, out)
+    # a synthetic lift whose state lies in device memory in bf16 too
+    st_big = synthetic_lift("oversize")
+    for kind_ in ("MS", "BP"):
+        d16 = variant(st_big, kind_, 6, "F")
+        check(d16.state_on_device, "the oversize lift's bf16 state lies in "
+              "device memory")
+        syn_big = syn_of(st_big.lift(), 0.01)[:, :256].contiguous()
+        out = compare_qc(f"ms_qc {kind_} bf16 oversize lift, state in "
+                         f"device memory", d16, syn_big, lch5, 3)
+        check(out[3], f"kernel B {kind_} bf16 == plain bf16 (device state)")
+        worst_bf[kind_] = max(worst_bf[kind_], out[2])
+
+    # 26. kernel F with the bf16 state against its plain version
+    phase("26 kernel F with the bf16 state, MS and BP")
+    bf_f, worst_bff = {}, {"MS": 0.0, "BP": 0.0}
+    st_bf = bf16_only_lift()
+    syn_bf = syn_of(st_bf.lift(), 0.002).T.contiguous()     # (B, m)
+    for kind_ in ("MS", "BP"):
+        d16 = variant(Hz, kind_, C5_ITER, "F", stacked=True)
+        d32 = variant(Hz, kind_, C5_ITER, "F", dtype=torch.float32,
+                      stacked=True)
+        check(d16.stacked and d32.stacked, "kernel F taken")
+        out = compare_flood(f"flood_qc {kind_} bf16 {CODE} side X p={C5_P}",
+                            d16, syn5, lch5, 5)
+        check(out[3], f"kernel F {kind_} bf16 == plain bf16 ({CODE})")
+        worst_bff[kind_] = max(worst_bff[kind_], out[2])
+        bf_f[kind_] = out
+        f32_ms = cuda_ms(lambda: flood_qc_cuda.flood_qc_cuda(d32, syn5,
+                                                             lch5), 5)
+        print(f"  bf16 {out[0]:.4f} ms against float32 {f32_ms:.4f} ms; "
+              f"shared memory per shot: bf16 "
+              f"{flood_qc_cuda.smem_bytes(d16.tabs, BF16)} B, float32 "
+              f"{flood_qc_cuda.smem_bytes(d32.tabs)} B  [{smi}]")
+        # a lift that kernel F takes only in bf16
+        f16 = variant(st_bf, kind_, 20, "F", stacked=True)
+        f32 = variant(st_bf, kind_, 20, "F", dtype=torch.float32,
+                      stacked=True)
+        check(f16.stacked and not f32.stacked and f32.state_on_device,
+              "the lift goes to kernel F in bf16 only (to kernel B with "
+              "its state in device memory in float32)")
+        out = compare_flood(f"flood_qc {kind_} bf16 lift 128 x (27 x 8), "
+                            f"{flood_qc_cuda.smem_bytes(f16.tabs, BF16)} B "
+                            f"(float32 {flood_qc_cuda.smem_bytes(f16.tabs)} "
+                            f"B)", f16, syn_bf, lch5, 3)
+        check(out[3], f"kernel F {kind_} bf16 == plain bf16 (the lift)")
+        worst_bff[kind_] = max(worst_bff[kind_], out[2])
+
+    # 27. kernel B with the stacked-update writeback against its plain
+    # version
+    phase("27 kernel B with the stacked-update writeback (QLDPC_QC_VEC=1)")
+    vec_b, worst_vec = {}, 0.0
+    for sched in (SCHEDULE, "F"):
+        dv = variant(Hz, "MS", MAX_ITER, sched, dtype=torch.float32,
+                     vec=True)
+        ds = variant(Hz, "MS", MAX_ITER, sched, dtype=torch.float32)
+        check(dv.vec and not ds.vec, "the writeback taken by keyword")
+        out = compare_qc(f"ms_qc MS vec {sched} side X", dv, syn50, lch, 5)
+        check(out[3], f"kernel B vec == plain vec ({sched})")
+        worst_vec = max(worst_vec, out[2])
+        vec_b.setdefault(sched, out)
+        s_ms = cuda_ms(lambda: ms_qc_cuda.ms_qc_cuda(ds, syn50, lch), 5)
+        vp, vi, vc = ms_qc_cuda.ms_qc_cuda(dv, syn50, lch)
+        sp, si, sc = ms_qc_cuda.ms_qc_cuda(ds, syn50, lch)
+        print(f"  vec {out[0]:.4f} ms against the per-slot writeback "
+              f"{s_ms:.4f} ms; against it: e_hat differs on "
+              f"{int(((vp < 0) != (sp < 0)).any(dim=0).sum())} shots, n_iter "
+              f"on {int((vi != si).sum())}, max|post diff| "
+              f"{float((vp - sp).abs().max())}  [{smi}]")
+        for on_device in (False, True):
+            dv.state_on_device = on_device
+            for per_edge in (True, False):
+                dv.per_edge = per_edge
+                check_qc(f"vec {sched}", dv, syn50[:, :300].contiguous(),
+                         lch)
+
+    # 28. the main paths with the variants, through simulate_p: the counts
+    # set to 0 just before each run and read just after
+    phase("28 main paths with the bf16 state and the writeback")
+    flags = ("QLDPC_QC_DTYPE", "QLDPC_QC_STACKED", "QLDPC_QC_VEC")
+
+    def with_env(env, fn):
+        """fn() with exactly `env` of the three flags in the environment
+        (decoders read them when they are built)."""
+        saved = {k: os.environ.pop(k, None) for k in flags}
+        os.environ.update(env)
+        try:
+            return fn()
+        finally:
+            for k in flags:
+                os.environ.pop(k, None)
+                if saved[k] is not None:
+                    os.environ[k] = saved[k]
+
+    def variant_run(label, env, cfg_, p_, want, base, exact):
+        """The path under `env`: its decoder choice, launches (kernel A fused
+        once a chunk, the variant's counter), qBLER against the float32
+        run's, a timed run, and the first chunks on the CPU against the card
+        (counters equal for MS, qBLER within 4 sigma for BP)."""
+        def run():
+            pipe_ = ShotPipeline(Hx, Hz, cfg_)
+            choice = _decoder_choice(pipe_.dec_x)
+            check(choice == want, f"{label}: decoder {choice}, want {want}")
+            reset_launches()
+            r_ = simulate_p(Hx, Hz, p_, cfg_, pipeline=pipe_)
+            la_ = read_launches()
+            var = {"B bf16": dict(ms_qc_cuda.BF16_LAUNCHES),
+                   "F bf16": dict(flood_qc_cuda.BF16_LAUNCHES),
+                   "B vec": ms_qc_cuda.VEC_LAUNCHES}
+            check_fused(la_, label)
+            print(f"{label}: {cfg_.shots} shots; decoder {choice}; launches "
+                  f"{ {k: v for k, v in la_.items() if v} }, variants {var}")
+            print(f"  counters {json.dumps(r_.counters)}; qBLER {r_.qbler!r}"
+                  f" (float32: {base.qbler!r}); warm {r_.shots_per_s_warm:.1f}"
+                  f" shots/s (float32: {base.shots_per_s_warm:.1f})  [{smi}]")
+            qbler_close(base.qbler, r_.qbler, base.shots, r_.shots,
+                        f"{label}: qBLER within 4 sigma of the float32 run's")
+            timed = timed_run(label, Hx, Hz, p_, cfg_, pipe_, TIMED_SHOTS,
+                              "not applicable; the float32 path's timed run "
+                              "is printed in its own phase")
+            cross = {}
+            n_cross = CROSS_CHUNKS if exact else 1   # BP's CPU run is slow
+            for device in ("cpu", "cuda"):
+                rc = simulate_p(Hx, Hz, p_, dataclasses.replace(
+                    cfg_, shots=n_cross * BATCH, device=device))
+                cross[device] = rc
+            if exact:
+                same = (cross["cpu"].counters == cross["cuda"].counters
+                        and cross["cpu"].avg_iterations_x
+                        == cross["cuda"].avg_iterations_x)
+                print(f"  first {CROSS_CHUNKS} chunks, CPU (plain) against "
+                      f"the card: counters equal {same}")
+                check(same, f"{label}: card counters == CPU counters")
+            else:
+                qbler_close(cross["cpu"].qbler, cross["cuda"].qbler,
+                            n_cross * BATCH, n_cross * BATCH,
+                            f"{label}: first {n_cross} chunk(s), card "
+                            "against CPU")
+            return r_, la_, var, timed, cross["cuda"]
+        return with_env(env, run)
+
+    cfg_f = dataclasses.replace(cfg, dec_schedule="F")
+    base_f = simulate_p(Hx, Hz, P_POINT, cfg_f)   # MS-F-50, kernel B, f32
+    runs = {}
+    runs["flagship bf16"] = variant_run(
+        f"flagship bf16 (MS-{SCHEDULE}-{MAX_ITER})",
+        {"QLDPC_QC_DTYPE": "bf16"}, cfg, P_POINT, "QCDecoder:bf16", res,
+        True)
+    runs["config 5 bf16"] = variant_run(
+        "config 5 bf16 on kernel B", {"QLDPC_QC_DTYPE": "bf16"}, cfg5, C5_P,
+        "QCDecoder:bf16", res5, False)
+    runs["config 5 bf16 F"] = variant_run(
+        "config 5 bf16 on kernel F",
+        {"QLDPC_QC_DTYPE": "bf16", "QLDPC_QC_STACKED": "1"}, cfg5, C5_P,
+        "QCDecoder:stacked:bf16", res5, False)
+    runs["MS-F bf16 F"] = variant_run(
+        f"MS-F-{MAX_ITER} bf16 on kernel F",
+        {"QLDPC_QC_DTYPE": "bf16", "QLDPC_QC_STACKED": "1"}, cfg_f, P_POINT,
+        "QCDecoder:stacked:bf16", base_f, True)
+    runs["flagship vec"] = variant_run(
+        f"flagship vec (MS-{SCHEDULE}-{MAX_ITER})", {"QLDPC_QC_VEC": "1"},
+        cfg, P_POINT, "QCDecoder:vec", res, True)
+    vec_small = runs["flagship vec"][4]
+    vec_counts = dict(vec_small.counters,
+                      nIterAccX=vec_small.avg_iterations_x * vec_small.shots,
+                      nIterAccZ=vec_small.avg_iterations_z * vec_small.shots)
+    print(f"  the writeback's first {CROSS_CHUNKS} chunks against the "
+          f"default run's (phase 8): counters equal "
+          f"{vec_counts == small['cuda']}")
+    check(runs["flagship bf16"][2]["B bf16"]["MS"] > 0
+          and runs["config 5 bf16"][2]["B bf16"]["BP"] > 0
+          and runs["config 5 bf16 F"][2]["F bf16"]["BP"] > 0
+          and runs["config 5 bf16 F"][1]["ms_qc BP"] == 0
+          and runs["MS-F bf16 F"][2]["F bf16"]["MS"] > 0
+          and runs["flagship vec"][2]["B vec"] > 0,
+          "every variant's kernel launched on its path")
+    check(all(k not in os.environ for k in flags), "the flags are unset")
     t_mesh = time.perf_counter()
 
     # M1. the flagship on a 2-slot mesh of the one card: a host thread per
@@ -2381,6 +2654,21 @@ def main():
         row("flood_qc_decode_bp", "flood_qc.cu", "flood_qc_pallas.py:53",
             launches_cli["flood_qc BP"], worst_f["BP"], f_times["BP"][0],
             f_times["BP"][1], f_times["BP"][4]),
+        row("ms_qc_decode_bf16", "ms_qc.cu", "ms_qc_pallas.py:119",
+            runs["flagship bf16"][2]["B bf16"]["MS"], worst_bf["MS"],
+            bf_b["MS"][0], bf_b["MS"][1], bf_b["MS"][4]),
+        row("ms_qc_decode_bp_bf16", "ms_qc.cu", "ms_qc_pallas.py:119",
+            runs["config 5 bf16"][2]["B bf16"]["BP"], worst_bf["BP"],
+            bf_b["BP"][0], bf_b["BP"][1], bf_b["BP"][4]),
+        row("flood_qc_decode_bf16", "flood_qc.cu", "flood_qc_pallas.py:55",
+            runs["MS-F bf16 F"][2]["F bf16"]["MS"], worst_bff["MS"],
+            bf_f["MS"][0], bf_f["MS"][1], bf_f["MS"][4]),
+        row("flood_qc_decode_bp_bf16", "flood_qc.cu", "flood_qc_pallas.py:55",
+            runs["config 5 bf16 F"][2]["F bf16"]["BP"], worst_bff["BP"],
+            bf_f["BP"][0], bf_f["BP"][1], bf_f["BP"][4]),
+        row("ms_qc_decode_vec", "ms_qc.cu", "ms_qc_pallas.py:249",
+            runs["flagship vec"][2]["B vec"], worst_vec, vec_b[SCHEDULE][0],
+            vec_b[SCHEDULE][1], vec_b[SCHEDULE][4]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on its main path")

@@ -14,12 +14,18 @@ versions), and `--execMode` is `auto` or `perdevice`, the one sharded mode
 CPU: one slot per process); `--mesh-p N` runs the p-points N at a time on N
 rows of slots. Under a launcher (torchrun, or the same environment set by
 hand) the processes join one gloo process group first; rank 0 alone prints
-and writes `--out`. With `QLDPC_LAUNCH_COUNTS=PATH` in the environment every
+and writes `--out` and the `--profile` trace. Without one, `--mesh` or
+`--mesh-p` on the card with more than one card in sight starts the run
+again as one process per card (`parallel/launch.py`): slot threads of one
+process contend for the host, processes do not. `--batch` keeps its meaning
+either way (a chunk over all cards: `--batch 4096*N` gives each of N cards
+a 4096-shot chunk), and so do the counters. With `QLDPC_LAUNCH_COUNTS=PATH` in the environment every
 rank writes its kernel launches (`ops.launch_counts`) as JSON to
 `PATH.<rank>` when the run ends.
 
     python -m qldpcsim_torch --code lp118_0 --p 0.03 0.05 --shots 65536 \\
         --decType MS --decSchedule L --decIterations 50 --rngSeed 0
+    python -m qldpcsim_torch --mesh --code lp118_0 ...     # a process per card
     torchrun --nproc-per-node 2 -m qldpcsim_torch --mesh --code lp118_0 ...
 """
 
@@ -64,7 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--mesh", action="store_true",
                     help="Shard each chunk's shots over the cards this "
                          "process owns and over every process of the run "
-                         "(counters equal the unsharded run's).")
+                         "(counters equal the unsharded run's). With more "
+                         "than one card and no launcher it starts one "
+                         "process per card.")
     ex.add_argument("--mesh-p", type=int, default=0, metavar="N",
                     help="Run the p-points N at a time on N rows of slots "
                          "(per-p counters equal the serial sweep's).")
@@ -106,8 +114,30 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def ranks_to_launch(args: argparse.Namespace) -> int:
+    """How many processes this command line starts itself as: one per card
+    for a sharded run on the card with more than one card in sight and no
+    launcher around it; else 0, and it runs here."""
+    if not (args.mesh or args.mesh_p) or args.device != "cuda":
+        return 0
+    from qldpcsim_torch.parallel.launch import launched
+
+    if launched():
+        return 0
+    import torch
+
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
+    n_ranks = ranks_to_launch(args)
+    if n_ranks:
+        from qldpcsim_torch.parallel.launch import launch_local
+
+        return launch_local(n_ranks,
+                            sys.argv[1:] if argv is None else list(argv))
     sharded = bool(args.mesh or args.mesh_p)
     lead = True  # several processes: rank 0 alone prints and writes --out
     if sharded:
@@ -154,7 +184,7 @@ def main(argv: Optional[list] = None) -> int:
         else None, mesh_p=args.mesh_p, exec_mode=args.execMode,
         checkpoint_dir=args.checkpointDir, progress=not args.quiet,
     )
-    with trace_context("p_sweep", args.profile):
+    with trace_context("p_sweep", args.profile if lead else None):
         if cfg.mesh_p:
             results = simulate_sweep(Hx, Hz, p, cfg)
         else:

@@ -44,6 +44,16 @@
 // block leaves at convergence, which is the reference's freeze: a converged
 // shot's new message is its old one and its delta exactly 0.
 //
+// bf16 state (BF16, a template parameter; QLDPC_QC_DTYPE=bf16 in the port,
+// semantics in ops/ms_qc_cuda.py): the posterior and the messages are
+// stored as __nv_bfloat16, rounded to nearest even where they are stored
+// (the prior, each new message, each posterior word after its update) and
+// read back as float32; the deltas stay float32 (the stored message minus
+// the old one), summed per variable in float32 as above, added, and the sum
+// rounded once. That takes a shot's state from 4 (n + 2 E + m) bytes to
+// 2 (n + E) + 4 (E + m), so a code slightly too large for a block in
+// float32 can fit in bf16, and more shots share an SM.
+//
 // What bounds it on an H100: latency, then operations, not bytes (a shot
 // reads m floats and writes n: ~3 KB against ~1,920 edges x 15 (MS) or 71
 // (BP) operations per iteration). A lone shot's iteration is the chain of
@@ -54,6 +64,7 @@
 // transcendental work on state that never leaves the SM.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -69,6 +80,28 @@ __device__ __forceinline__ float sign_floor(float x, float floor_abs) {
   // (x < 0 ? -1 : 1) * max(|x|, floor_abs), as the reference writes it
   return (x < 0.0f ? -1.0f : 1.0f) * fmaxf(fabsf(x), floor_abs);
 }
+
+// The carried state's storage: float32, or bf16 rounded to nearest even.
+template <bool BF16>
+struct State {
+  using T = float;
+  static __device__ __forceinline__ float ld(const T* p) { return *p; }
+  static __device__ __forceinline__ void st(T* p, float x) { *p = x; }
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+};
+template <>
+struct State<true> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float ld(const T* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void st(T* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
 
 // (min1, min2) of m1[0..DD) by the reference's pairwise merge tree
 // (_min12_tree / _min12_merge), in place; the result lands in m1[0], m2[0].
@@ -127,20 +160,20 @@ __device__ __forceinline__ void row_addresses(int row, int L, const int* sjL,
 // the row's d values in the reference's order, then writes the row's
 // messages and deltas. Returns 1 when `check` is set and the row's parity
 // of the posterior's signs differs from its syndrome bit.
-template <int KIND, int D>
-__device__ __forceinline__ int row_update(const unsigned (&pk)[D], int cbase,
-                                          float ss, bool check, float beta,
-                                          float clamp, int L,
-                                          const float* post, float* c2v,
-                                          float* dv) {
+template <int KIND, int D, bool BF16>
+__device__ __forceinline__ int row_update(
+    const unsigned (&pk)[D], int cbase, float ss, bool check, float beta,
+    float clamp, int L, const typename State<BF16>::T* post,
+    typename State<BF16>::T* c2v, float* dv) {
+  using Q = State<BF16>;
   float x[D];  // MS: v; BP: the clamped tanh, in slot order
   float old[D];
   int par = 0;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const float pv = post[pk[d] & 0xffff];
+    const float pv = Q::ld(post + (pk[d] & 0xffff));
     par ^= pv < 0.0f;
-    old[d] = c2v[cbase + d * L];
+    old[d] = Q::ld(c2v + cbase + d * L);
     const float v = pv - old[d];
     if constexpr (KIND == kMS)
       x[d] = v;
@@ -168,8 +201,8 @@ __device__ __forceinline__ int row_update(const unsigned (&pk)[D], int cbase,
     for (int d = 0; d < D; ++d) {
       const float neg = x[d] < 0.0f ? 1.0f : 0.0f;
       const float mag = (fabsf(x[d]) == lo1) ? lo2 : lo1;
-      const float nv = coef * (mag - 2.0f * (neg * mag));
-      c2v[cbase + d * L] = nv;
+      const float nv = Q::rnd(coef * (mag - 2.0f * (neg * mag)));
+      Q::st(c2v + cbase + d * L, nv);
       dv[pk[d] >> 16] = nv - old[d];
     }
   } else {
@@ -180,15 +213,22 @@ __device__ __forceinline__ int row_update(const unsigned (&pk)[D], int cbase,
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const float th2 = fminf(fmaxf(p[0] / x[d], -clamp), clamp);
-      const float nv = ss * logf((1.0f + th2) / (1.0f - th2));
-      c2v[cbase + d * L] = nv;
+      const float nv = Q::rnd(ss * logf((1.0f + th2) / (1.0f - th2)));
+      Q::st(c2v + cbase + d * L, nv);
       dv[pk[d] >> 16] = nv - old[d];
     }
   }
   return bad;
 }
 
-template <int KIND, int D>
+// The shared-memory layout of a shot: the posterior (n) and the messages
+// (E) in the state's type, padded to a word; then float32 deltas (E) and
+// syndrome signs (m); then the int32 tables (3 S + n_b + 1).
+__host__ __device__ inline size_t carried_words(int n, int E, bool bf16) {
+  return ((size_t)(n + E) * (bf16 ? 2 : 4) + 3) / 4;
+}
+
+template <int KIND, int D, bool BF16>
 __global__ void __launch_bounds__(1024)
     flood_qc_kernel(const float* __restrict__ syn, float lch, float beta,
                     float clamp, int max_iter, int L, int m_b, int n_b,
@@ -198,11 +238,13 @@ __global__ void __launch_bounds__(1024)
                     const int* __restrict__ g_col_k,
                     float* __restrict__ post_out, int* __restrict__ n_iter,
                     uint8_t* __restrict__ conv) {
+  using Q = State<BF16>;
+  using T = typename Q::T;
   extern __shared__ float smem[];
   const int S = m_b * D, m = m_b * L, n = n_b * L, E = S * L;
-  float* post = smem;                  // n
-  float* c2v = post + n;               // E: slot k, check row r at k * L + r
-  float* dv = c2v + E;                 // E: by variable (see above)
+  T* post = (T*)smem;                  // n
+  T* c2v = post + n;                   // E: slot k, check row r at k * L + r
+  float* dv = smem + carried_words(n, E, BF16);  // E: by variable (above)
   float* ssign = dv + E;               // m: 1 - 2 syndrome
   int* sjL = (int*)(ssign + m);        // S: slot_j * L
   int* sslot = sjL + S;                // S: slot_s
@@ -217,8 +259,8 @@ __global__ void __launch_bounds__(1024)
     spos[g_col_k[t]] = t;
   }
   for (int t = tid; t <= n_b; t += nt) cptr[t] = g_col_ptr[t];
-  for (int t = tid; t < n; t += nt) post[t] = lch;
-  for (int t = tid; t < E; t += nt) c2v[t] = 0.0f;
+  for (int t = tid; t < n; t += nt) Q::st(post + t, lch);
+  for (int t = tid; t < E; t += nt) Q::st(c2v + t, 0.0f);
   for (int t = tid; t < m; t += nt) ssign[t] = 1.0f - 2.0f * syn[b * m + t];
   __syncthreads();
 
@@ -256,8 +298,8 @@ __global__ void __launch_bounds__(1024)
         row_addresses<D>(row, L, sjL, sslot, spos, pk, cbase);
         ss = ssign[row];
       }
-      bad |= row_update<KIND, D>(pk, cbase, ss, it > 0, beta, clamp, L, post,
-                                 c2v, dv);
+      bad |= row_update<KIND, D, BF16>(pk, cbase, ss, it > 0, beta, clamp, L,
+                                       post, c2v, dv);
     }
     if (__syncthreads_or(bad) == 0 && it > 0) {
       it_lat = it;  // the posterior after iteration it - 1 satisfies H
@@ -284,14 +326,15 @@ __global__ void __launch_bounds__(1024)
     }
 #pragma unroll
     for (int q = 0; q < kVPT; ++q)
-      if (vpk[q] >> 16) post[tid + q * nt] = post[tid + q * nt] + acc[q];
+      if (vpk[q] >> 16)
+        Q::st(post + tid + q * nt, Q::ld(post + tid + q * nt) + acc[q]);
     for (int v = tid + kVPT * nt; v < n; v += nt) {
       const int j = v / L;
       const int v0 = cptr[j] * L + (v - j * L), cw = cptr[j + 1] - cptr[j];
       if (cw > 0) {
         float a = dv[v0];
         for (int c = 1; c < cw; ++c) a = a + dv[v0 + c * L];
-        post[v] = post[v] + a;
+        Q::st(post + v, Q::ld(post + v) + a);
       }
     }
     __syncthreads();
@@ -306,34 +349,35 @@ __global__ void __launch_bounds__(1024)
       for (int d = 0; d < D; ++d) {
         int rs = r + sslot[i * D + d];
         if (rs >= L) rs -= L;
-        parity ^= post[sjL[i * D + d] + rs] < 0.0f;
+        parity ^= Q::ld(post + sjL[i * D + d] + rs) < 0.0f;
       }
       bad |= parity != (ssign[row] < 0.0f);
     }
     done = __syncthreads_or(bad) == 0;
   }
-  for (int t = tid; t < n; t += nt) post_out[b * n + t] = post[t];
+  for (int t = tid; t < n; t += nt) post_out[b * n + t] = Q::ld(post + t);
   if (tid == 0) {
     n_iter[b] = it_lat;
     conv[b] = done ? 1 : 0;
   }
 }
 
-size_t smem_bytes(int L, int m_b, int n_b, int deg) {
+size_t smem_bytes(int L, int m_b, int n_b, int deg, bool bf16) {
   const size_t S = (size_t)m_b * deg;
-  return sizeof(float) * ((size_t)n_b * L + 2 * S * L + (size_t)m_b * L) +
+  return sizeof(float) * (carried_words(n_b * L, (int)(S * L), bf16) +
+                          S * L + (size_t)m_b * L) +
          sizeof(int) * (3 * S + n_b + 1);
 }
 
-template <int KIND, int D>
+template <int KIND, int D, bool BF16>
 cudaError_t launch(const float* syn, int B, float lch, float beta,
                    float clamp, int max_iter, int L, int m_b, int n_b,
                    int threads, const int* slot_j, const int* slot_s,
                    const int* col_ptr, const int* col_k, float* post,
                    int* n_iter, uint8_t* conv, cudaStream_t stream) {
-  const size_t shmem = smem_bytes(L, m_b, n_b, D);
+  const size_t shmem = smem_bytes(L, m_b, n_b, D, BF16);
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = flood_qc_kernel<KIND, D>;
+  auto kernel = flood_qc_kernel<KIND, D, BF16>;
   if (shmem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -357,6 +401,7 @@ const char* flood_qc_error_string(int rc) {
 // float32. syn: (B, m) float32 0/1, shot-major, m = m_b * L; deg: the
 // uniform block-row degree (1..16), slot k = i * deg + d of block-row i;
 // threads per shot (a multiple of 32, at most 1024): ops/flood_qc_cuda.plan;
+// bf16: 1 for the posterior and messages stored in bf16, 0 for float32;
 // slot_j, slot_s: (m_b * deg,) as
 // in convert.QCTables; col_ptr (n_b + 1,), col_k (m_b * deg,):
 // QCTables.col_slots(); all int32 on the device. post: (B, n) posterior
@@ -365,7 +410,7 @@ const char* flood_qc_error_string(int rc) {
 // (cudaErrorInvalidValue for a degree or a state size it cannot run).
 int flood_qc_decode(const void* syn, int B, int kind, float lch, float beta,
                     float clamp, int max_iter, int L, int m_b, int n_b,
-                    int deg, int threads, const void* slot_j,
+                    int deg, int threads, int bf16, const void* slot_j,
                     const void* slot_s, const void* col_ptr,
                     const void* col_k, void* post, void* n_iter, void* conv,
                     void* stream) {
@@ -382,8 +427,11 @@ int flood_qc_decode(const void* syn, int B, int kind, float lch, float beta,
       (cudaStream_t)stream
 #define QLDPC_FLOOD_CASE(D)                                                  \
   case D:                                                                    \
-    return (int)(kind == kMS ? launch<kMS, D>(QLDPC_FLOOD_ARGS)              \
-                             : launch<kBP, D>(QLDPC_FLOOD_ARGS));
+    if (bf16)                                                                \
+      return (int)(kind == kMS ? launch<kMS, D, true>(QLDPC_FLOOD_ARGS)      \
+                               : launch<kBP, D, true>(QLDPC_FLOOD_ARGS));    \
+    return (int)(kind == kMS ? launch<kMS, D, false>(QLDPC_FLOOD_ARGS)       \
+                             : launch<kBP, D, false>(QLDPC_FLOOD_ARGS));
   switch (deg) {
     QLDPC_FLOOD_CASE(1)
     QLDPC_FLOOD_CASE(2)

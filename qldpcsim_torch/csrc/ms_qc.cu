@@ -75,6 +75,25 @@
 // parameter chosen by the wrapper from the tables when the decoder is
 // built; shot-major scratch, so a shot's threads touch neighbouring words).
 //
+// Two variants of the reference's kernel (semantics in ops/ms_qc_cuda.py):
+//  - bf16 state (BF16, a template parameter; QLDPC_QC_DTYPE=bf16): the
+//    posterior, the messages and the snapshot deltas are stored as
+//    __nv_bfloat16, rounded to nearest even where stored and read back as
+//    float32; all arithmetic stays float32 (a message's delta is the stored
+//    message minus the old one; a posterior word is rounded once after its
+//    update, under a snapshot after its deltas are summed in float32). The
+//    syndrome signs and mismatch bits stay as they are. A shot's state
+//    falls from 4 (n + E + D L + m) bytes to 2 (n + E + D L) + 4 m, so more
+//    shots share an SM and a code whose float32 state needs device memory
+//    may fit a block.
+//  - the stacked-update writeback (VEC, a template parameter instantiated
+//    for MS without TRACK only; QLDPC_QC_VEC=1): delta = fma(coef * sign,
+//    mag, -R) rounded once, the stored message R + delta instead of the
+//    extrinsic, the posterior += delta, in every lane of either mapping.
+//    As a run-time branch at the writeback it cost the default kernel 4 %
+//    under F (a thread per check row; chip_compare.py, PERF.md), hence the
+//    template.
+//
 // What bounds it on an H100: operations, not bytes (a shot reads m floats
 // and writes n: ~3 KB against 1,920 edges x 15 (MS) or 71 (BP) operations
 // per iteration), and within a shot the chain of dependent layer groups (11
@@ -85,6 +104,7 @@
 // SM. Left for later: both sides in one launch.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -99,6 +119,29 @@ __device__ __forceinline__ float sign_floor(float x, float floor_abs) {
   // (x < 0 ? -1 : 1) * max(|x|, floor_abs), as the reference writes it
   return (x < 0.0f ? -1.0f : 1.0f) * fmaxf(fabsf(x), floor_abs);
 }
+
+// The carried state's storage: float32, or bf16 rounded to nearest even
+// (the same helper as kernel F's, csrc/flood_qc.cu).
+template <bool BF16>
+struct State {
+  using T = float;
+  static __device__ __forceinline__ float ld(const T* p) { return *p; }
+  static __device__ __forceinline__ void st(T* p, float x) { *p = x; }
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+};
+template <>
+struct State<true> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float ld(const T* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void st(T* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
 
 struct Args {
   const float* syn;       // element (row, shot) at row * syn_rs + shot * syn_bs
@@ -120,18 +163,31 @@ __host__ __device__ inline int table_words(int m_b, int n_b, int n_groups,
   return (m_b + 1) + 4 * n_slots + (2 * n_groups + 1) + (n_b + 1);
 }
 
+// the carried state (posterior, messages, snapshot deltas: 2 or 4 bytes a
+// value) in 32-bit words, padded
+__host__ __device__ inline int carried_words(int L, int n_b, int n_slots,
+                                             int delta_slots, bool bf16) {
+  return ((n_b + n_slots + delta_slots) * L * (bf16 ? 2 : 4) + 3) / 4;
+}
+
 __host__ __device__ inline int state_words(int L, int m_b, int n_b,
                                            int n_slots, int delta_slots,
-                                           bool track) {
-  return n_b * L + (n_slots + delta_slots) * L + m_b * L +
+                                           bool track, bool bf16) {
+  return carried_words(L, n_b, n_slots, delta_slots, bf16) + m_b * L +
          (track ? (m_b * L + 31) / 32 : 0);
 }
 
 // TRACK: the check after every layer group; GMEM: the shots' state in
 // device memory instead of shared memory; EDGE: a thread per edge (MAXD
-// lanes side by side per check row) instead of a thread per check row.
-template <int KIND, int MAXD, bool TRACK, bool GMEM, bool EDGE>
+// lanes side by side per check row) instead of a thread per check row;
+// BF16: the carried state in bf16; VEC: the stacked-update writeback (MS,
+// no TRACK).
+template <int KIND, int MAXD, bool TRACK, bool GMEM, bool EDGE, bool BF16,
+          bool VEC>
 __global__ void ms_qc_kernel(const Args a) {
+  static_assert(!VEC || (KIND == kMS && !TRACK), "VEC: MS, no TRACK");
+  using Q = State<BF16>;
+  using ST = typename Q::T;
   extern __shared__ int smem[];
   const int L = a.L, m_b = a.m_b, n_b = a.n_b, S = a.n_slots;
   const int G = a.n_groups;
@@ -162,17 +218,19 @@ __global__ void ms_qc_kernel(const Args a) {
 
   const int n = n_b * L, m = m_b * L, E = S * L;
   const int nw = (m + 31) / 32;
-  const int words = state_words(L, m_b, n_b, S, a.delta_slots, TRACK);
+  const int words =
+      state_words(L, m_b, n_b, S, a.delta_slots, TRACK, BF16);
   float* st = GMEM ? a.state + shot * words
                    : (float*)(smem + table_words(m_b, n_b, G, S));
-  float* post = st;                         // n
-  float* c2v = post + n;                    // E: slot k, check row r at k*L+r
-  float* dbuf = c2v + E;                    // delta_slots * L
-  float* ssign = dbuf + a.delta_slots * L;  // m: 1 - 2 syndrome
+  ST* post = (ST*)st;                       // n
+  ST* c2v = post + n;                       // E: slot k, check row r at k*L+r
+  ST* dbuf = c2v + E;                       // delta_slots * L
+  float* ssign =                            // m: 1 - 2 syndrome
+      st + carried_words(L, n_b, S, a.delta_slots, BF16);
   uint32_t* mis = (uint32_t*)(ssign + m);   // nw, TRACK only
 
-  for (int v = t; v < n; v += T) post[v] = a.lch;
-  for (int e = t; e < E; e += T) c2v[e] = 0.0f;
+  for (int v = t; v < n; v += T) Q::st(post + v, a.lch);
+  for (int e = t; e < E; e += T) Q::st(c2v + e, 0.0f);
   for (int row = t; row < m; row += T)
     ssign[row] = 1.0f - 2.0f * a.syn[row * a.syn_rs + shot * a.syn_bs];
   if constexpr (TRACK) {
@@ -230,10 +288,10 @@ __global__ void ms_qc_kernel(const Args a) {
             int rs = r + slot_s[k0 + d];
             if (rs >= L) rs -= L;
             vi = slot_j[k0 + d] * L + rs;
-            rowv = c2v[(k0 + d) * L + r];
-            v = post[vi] - rowv;
+            rowv = Q::ld(c2v + (k0 + d) * L + r);
+            v = Q::ld(post + vi) - rowv;
           }
-          float nv = 0.0f;
+          float nv = 0.0f, delta = 0.0f;
           if constexpr (KIND == kMS) {
             const float av = on ? fabsf(v) : kBig;
             const bool neg = on && v < 0.0f;
@@ -255,7 +313,13 @@ __global__ void ms_qc_kernel(const Args a) {
               const float coef = (a.beta * ssign[row]) * (1.0f - 2.0f * par);
               const float mag = (av == m1) ? m2 : m1;
               const float negf = neg ? 1.0f : 0.0f;
-              nv = coef * (mag - 2.0f * (negf * mag));
+              if constexpr (VEC) {
+                delta = __fmaf_rn(coef * (1.0f - 2.0f * negf), mag, -rowv);
+                nv = Q::rnd(rowv + delta);
+              } else {
+                nv = Q::rnd(coef * (mag - 2.0f * (negf * mag)));
+                delta = nv - rowv;
+              }
             }
           } else {
             const float tt = on ? sign_floor(tanhf(v * 0.5f), 1e-12f) : 1.0f;
@@ -267,18 +331,18 @@ __global__ void ms_qc_kernel(const Args a) {
             }
             if (on) {
               const float th2 = fminf(fmaxf(prod / tt, -a.clamp), a.clamp);
-              nv = ssign[row] * logf((1.0f + th2) / (1.0f - th2));
+              nv = Q::rnd(ssign[row] * logf((1.0f + th2) / (1.0f - th2)));
+              delta = nv - rowv;
             }
           }
           if (on) {
-            const float delta = nv - rowv;
-            c2v[(k0 + d) * L + r] = nv;
+            Q::st(c2v + (k0 + d) * L + r, nv);
             if (snap) {
-              dbuf[(k0 + d - kg0) * L + r] = delta;
+              Q::st(dbuf + (k0 + d - kg0) * L + r, delta);
             } else {
-              const float pold = post[vi];
-              const float pnew = pold + delta;
-              post[vi] = pnew;
+              const float pold = Q::ld(post + vi);
+              const float pnew = Q::rnd(pold + delta);
+              Q::st(post + vi, pnew);
               if constexpr (TRACK) {
                 if ((pold < 0.0f) != (pnew < 0.0f)) {
                   const int j = slot_j[k0 + d];
@@ -310,8 +374,8 @@ __global__ void ms_qc_kernel(const Args a) {
               int rs = r + slot_s[k0 + d];
               if (rs >= L) rs -= L;
               vi[d] = slot_j[k0 + d] * L + rs;
-              rowv[d] = c2v[(k0 + d) * L + r];
-              const float v = post[vi[d]] - rowv[d];
+              rowv[d] = Q::ld(c2v + (k0 + d) * L + r);
+              const float v = Q::ld(post + vi[d]) - rowv[d];
               if constexpr (KIND == kMS) {
                 av[d] = fabsf(v);
                 neg[d] = v < 0.0f;
@@ -336,23 +400,30 @@ __global__ void ms_qc_kernel(const Args a) {
 #pragma unroll
           for (int d = 0; d < MAXD; ++d) {
             if (d < deg) {
-              float nv;
+              float nv, delta;
               if constexpr (KIND == kMS) {
                 const float mag = (av[d] == m1) ? m2 : m1;
                 const float negf = neg[d] ? 1.0f : 0.0f;
-                nv = coef * (mag - 2.0f * (negf * mag));
+                if constexpr (VEC) {
+                  delta =
+                      __fmaf_rn(coef * (1.0f - 2.0f * negf), mag, -rowv[d]);
+                  nv = Q::rnd(rowv[d] + delta);
+                } else {
+                  nv = Q::rnd(coef * (mag - 2.0f * (negf * mag)));
+                  delta = nv - rowv[d];
+                }
               } else {
                 const float th2 = fminf(fmaxf(prod / av[d], -a.clamp), a.clamp);
-                nv = ss * logf((1.0f + th2) / (1.0f - th2));
+                nv = Q::rnd(ss * logf((1.0f + th2) / (1.0f - th2)));
+                delta = nv - rowv[d];
               }
-              const float delta = nv - rowv[d];
-              c2v[(k0 + d) * L + r] = nv;
+              Q::st(c2v + (k0 + d) * L + r, nv);
               if (snap) {
-                dbuf[(k0 + d - kg0) * L + r] = delta;
+                Q::st(dbuf + (k0 + d - kg0) * L + r, delta);
               } else {
-                const float pold = post[vi[d]];
-                const float pnew = pold + delta;
-                post[vi[d]] = pnew;
+                const float pold = Q::ld(post + vi[d]);
+                const float pnew = Q::rnd(pold + delta);
+                Q::st(post + vi[d], pnew);
                 if constexpr (TRACK) {
                   if ((pold < 0.0f) != (pnew < 0.0f)) {
                     const int j = slot_j[k0 + d];
@@ -367,10 +438,11 @@ __global__ void ms_qc_kernel(const Args a) {
       __syncthreads();
       if (snap) {
         // one variable per thread: the group's deltas added one by one in
-        // ascending slot order, each sum rounded
+        // ascending slot order, each float32 sum rounded, the posterior word
+        // stored once
         for (int v = t; v < n; v += T) {
           const int j = v / L, vr = v - j * L;
-          const float pold = post[v];
+          const float pold = Q::ld(post + v);
           float pv = pold;
           for (int c = col_ptr[j]; c < col_ptr[j + 1]; ++c) {
             const int k = col_k[c];
@@ -378,10 +450,11 @@ __global__ void ms_qc_kernel(const Args a) {
             if (i >= i0 && i < i1) {
               int rr = vr - slot_s[k];
               if (rr < 0) rr += L;
-              pv = pv + dbuf[(k - kg0) * L + rr];
+              pv = pv + Q::ld(dbuf + (k - kg0) * L + rr);
             }
           }
-          post[v] = pv;
+          pv = Q::rnd(pv);
+          Q::st(post + v, pv);
           if constexpr (TRACK) {
             // flips of the single adds cancel in pairs: the net flip counts
             if ((pold < 0.0f) != (pv < 0.0f)) toggle(j, vr);
@@ -408,7 +481,7 @@ __global__ void ms_qc_kernel(const Args a) {
         for (int k = row_ptr[i]; k < row_ptr[i + 1]; ++k) {
           int rs = r + slot_s[k];
           if (rs >= L) rs -= L;
-          parity ^= post[slot_j[k] * L + rs] < 0.0f;
+          parity ^= Q::ld(post + slot_j[k] * L + rs) < 0.0f;
         }
         bad |= parity != (ssign[row] < 0.0f);
       }
@@ -418,46 +491,77 @@ __global__ void ms_qc_kernel(const Args a) {
       }
     }
   }
-  for (int v = t; v < n; v += T) a.post[shot * n + v] = post[v];
+  for (int v = t; v < n; v += T) a.post[shot * n + v] = Q::ld(post + v);
   if (t == 0) {
     a.n_iter[shot] = it_lat;
     a.conv[shot] = done ? 1 : 0;
   }
 }
 
-template <int KIND, int MAXD, bool TRACK, bool GMEM, bool EDGE>
-cudaError_t launch(const Args& a, int threads, cudaStream_t stream) {
+// Launches the kernel; or, with `occ`, writes the blocks of this launch that
+// one SM can hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+// launches nothing.
+template <int KIND, int MAXD, bool TRACK, bool GMEM, bool EDGE, bool BF16,
+          bool VEC>
+cudaError_t launch(const Args& a, int threads, cudaStream_t stream,
+                   int* occ) {
   const size_t shmem =
-      sizeof(int) * ((size_t)table_words(a.m_b, a.n_b, a.n_groups, a.n_slots) +
-                     (GMEM ? 0
-                           : (size_t)state_words(a.L, a.m_b, a.n_b, a.n_slots,
-                                                 a.delta_slots, TRACK)));
+      sizeof(int) *
+      ((size_t)table_words(a.m_b, a.n_b, a.n_groups, a.n_slots) +
+       (GMEM ? 0
+             : (size_t)state_words(a.L, a.m_b, a.n_b, a.n_slots,
+                                   a.delta_slots, TRACK, BF16)));
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ms_qc_kernel<KIND, MAXD, TRACK, GMEM, EDGE>;
+  auto kernel = ms_qc_kernel<KIND, MAXD, TRACK, GMEM, EDGE, BF16, VEC>;
   if (shmem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (rc != cudaSuccess) return rc;
   }
+  if (occ)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel, threads,
+                                                         shmem);
   kernel<<<a.B, threads, shmem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The run-time choices (mapping, dtype, writeback) -> a template instance;
+// VEC exists for MS without TRACK only.
+struct Choice {
+  bool edge, bf16, vec;
+  int threads;
+  cudaStream_t stream;
+  int* occ;
+};
+
+template <int KIND, int MAXD, bool TRACK, bool GMEM, bool BF16, bool VEC>
+cudaError_t dispatch3(const Args& a, const Choice& c) {
+  return c.edge ? launch<KIND, MAXD, TRACK, GMEM, true, BF16, VEC>(
+                      a, c.threads, c.stream, c.occ)
+                : launch<KIND, MAXD, TRACK, GMEM, false, BF16, VEC>(
+                      a, c.threads, c.stream, c.occ);
+}
+
+template <int KIND, int MAXD, bool TRACK, bool GMEM, bool BF16>
+cudaError_t dispatch2v(const Args& a, const Choice& c) {
+  if constexpr (KIND == kMS && !TRACK)
+    if (c.vec) return dispatch3<KIND, MAXD, TRACK, GMEM, BF16, true>(a, c);
+  return dispatch3<KIND, MAXD, TRACK, GMEM, BF16, false>(a, c);
+}
+
 template <int KIND, int MAXD, bool TRACK, bool GMEM>
-cudaError_t dispatch2(const Args& a, bool edge, int threads,
-                      cudaStream_t stream) {
-  return edge ? launch<KIND, MAXD, TRACK, GMEM, true>(a, threads, stream)
-              : launch<KIND, MAXD, TRACK, GMEM, false>(a, threads, stream);
+cudaError_t dispatch2(const Args& a, const Choice& c) {
+  return c.bf16 ? dispatch2v<KIND, MAXD, TRACK, GMEM, true>(a, c)
+                : dispatch2v<KIND, MAXD, TRACK, GMEM, false>(a, c);
 }
 
 template <int KIND, int MAXD>
-cudaError_t dispatch(const Args& a, bool track, bool gmem, bool edge,
-                     int threads, cudaStream_t stream) {
+cudaError_t dispatch(const Args& a, bool track, bool gmem, const Choice& c) {
   if (track)
-    return gmem ? dispatch2<KIND, MAXD, true, true>(a, edge, threads, stream)
-                : dispatch2<KIND, MAXD, true, false>(a, edge, threads, stream);
-  return gmem ? dispatch2<KIND, MAXD, false, true>(a, edge, threads, stream)
-              : dispatch2<KIND, MAXD, false, false>(a, edge, threads, stream);
+    return gmem ? dispatch2<KIND, MAXD, true, true>(a, c)
+                : dispatch2<KIND, MAXD, true, false>(a, c);
+  return gmem ? dispatch2<KIND, MAXD, false, true>(a, c)
+              : dispatch2<KIND, MAXD, false, false>(a, c);
 }
 
 }  // namespace
@@ -478,22 +582,27 @@ const char* ms_qc_error_string(int rc) {
 // the check after every layer group, 0 for one check per iteration.
 // per_edge: 1 for a thread per edge, 0 for a thread per check row.
 // threads: the threads of a shot's block, a multiple of 32 up to 1024.
+// bf16: 1 for the carried state in bf16, 0 for float32. vec: 1 for the
+// stacked-update writeback (kind MS, track 0; ignored otherwise).
 // state: null for the shots' state in shared memory, or (B, words) float32
-// scratch in device memory, words = n + (n_slots + delta_slots) * L + m +
-// (track ? ceil(m / 32) : 0). post: (B, n) posterior out, shot-major;
-// n_iter: (B,) int32 out;
-// conv: (B,) uint8 out. Launches on `stream` and returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a degree,
-// a thread count or a state size it cannot run).
+// scratch in device memory, words = ceil((n + (n_slots + delta_slots) * L)
+// * (bf16 ? 2 : 4) / 4) + m + (track ? ceil(m / 32) : 0). post: (B, n)
+// posterior out, shot-major; n_iter: (B,) int32 out; conv: (B,) uint8 out.
+// Launches on `stream` and returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a degree, a thread count or a state size it
+// cannot run). With `blocks_per_sm` not
+// null it launches nothing and writes there (int) how many blocks of this
+// launch one SM can hold; the data pointers are then not read.
 int ms_qc_decode(const void* syn, long long syn_rs, long long syn_bs, int B,
                  int kind, float lch, float beta, float clamp, int max_iter,
                  int L, int m_b, int n_b, int n_groups, int max_deg,
                  int n_slots, int delta_slots, int track, int per_edge,
-                 int threads, const void* row_ptr, const void* slot_j,
-                 const void* slot_s, const void* slot_row,
+                 int threads, int bf16, int vec, const void* row_ptr,
+                 const void* slot_j, const void* slot_s, const void* slot_row,
                  const void* group_ptr, const void* group_snap,
                  const void* col_ptr, const void* col_k, void* state,
-                 void* post, void* n_iter, void* conv, void* stream) {
+                 void* post, void* n_iter, void* conv, void* stream,
+                 void* blocks_per_sm) {
   if (B <= 0) return 0;
   if (threads < 32 || threads > 1024 || threads % 32)
     return (int)cudaErrorInvalidValue;
@@ -525,18 +634,15 @@ int ms_qc_decode(const void* syn, long long syn_rs, long long syn_bs, int B,
   a.n_iter = (int*)n_iter;
   a.conv = (uint8_t*)conv;
   const bool gmem = state != nullptr;
+  int* occ = (int*)blocks_per_sm;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool e = per_edge != 0;
+  const Choice c{per_edge != 0, bf16 != 0, vec != 0, threads, s, occ};
   if (kind == kMS) {
-    if (max_deg <= 8)
-      return (int)dispatch<kMS, 8>(a, track, gmem, e, threads, s);
-    if (max_deg <= 32)
-      return (int)dispatch<kMS, 32>(a, track, gmem, e, threads, s);
+    if (max_deg <= 8) return (int)dispatch<kMS, 8>(a, track, gmem, c);
+    if (max_deg <= 32) return (int)dispatch<kMS, 32>(a, track, gmem, c);
   } else if (kind == kBP) {
-    if (max_deg <= 8)
-      return (int)dispatch<kBP, 8>(a, track, gmem, e, threads, s);
-    if (max_deg <= 32)
-      return (int)dispatch<kBP, 32>(a, track, gmem, e, threads, s);
+    if (max_deg <= 8) return (int)dispatch<kBP, 8>(a, track, gmem, c);
+    if (max_deg <= 32) return (int)dispatch<kBP, 32>(a, track, gmem, c);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -471,12 +471,16 @@ class ShotPipeline(nn.Module):
 def _decoder_choice(dec: nn.Module) -> str:
     """The decoder a side resolved to: the class of its (first-stage)
     decoder and, for the QC decoder, whether the slot-stacked flooding
-    kernel was taken. Neither is a field of the decoder config (the second
-    is read from the environment when the decoder is built), and the two
-    flooding kernels' counters differ."""
+    kernel (`:stacked`), the bf16 state (`:bf16`) and the stacked-update
+    writeback (`:vec`) were taken. None is a field of the decoder config
+    (each is read from the environment when the decoder is built), and each
+    changes the counters."""
     first = dec.decs[0] if hasattr(dec, "decs") else dec
-    stacked = ":stacked" if getattr(first, "stacked", False) else ""
-    return type(first).__name__ + stacked
+    tags = [":stacked" if getattr(first, "stacked", False) else "",
+            ":bf16" if getattr(first, "state_dtype", None) == torch.bfloat16
+            else "",
+            ":vec" if getattr(first, "vec", False) else ""]
+    return type(first).__name__ + "".join(tags)
 
 
 def _ckpt_id(pipe: ShotPipeline, cfg: SimConfig, seed: int, p, p_index: int,

@@ -42,8 +42,18 @@ tensors: syndromes (B, m) in, posterior (B, n) out. `plan(tabs)` fixes the
 block's threads from the tables when the decoder is built
 (`QCDecoder.flood_threads`); the wrapper reads it and takes no override.
 
+With the decoder's `state_dtype` bf16 (`QLDPC_QC_DTYPE=bf16`, the
+semantics in `ops/ms_qc_cuda.py`) the posterior and the messages are
+stored in bf16: the prior and every new message rounded where stored, the
+deltas kept in float32 (stored message minus old), a variable's deltas
+summed in float32 in ascending slot order, added, and the posterior word
+rounded once. The shared memory a shot needs follows the dtype
+(`smem_bytes`), and with it whether the kernel can take a code
+(`supports`).
+
 `flood_qc` runs the kernel for CUDA tensors and the plain version for CPU
-tensors. `LAUNCHES[kind]` counts kernel launches.
+tensors. `LAUNCHES[kind]` counts kernel launches, `BF16_LAUNCHES[kind]`
+those with the bf16 state among them.
 """
 
 from __future__ import annotations
@@ -55,8 +65,17 @@ import torch
 from qldpcsim_torch.convert import QCTables
 from qldpcsim_torch.ops import _build
 
+
+def round_state(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x (float32) as stored in the carried state of `dtype`: rounded to
+    bf16 (nearest even) and read back as float32, or x itself."""
+    if dtype == torch.float32:
+        return x
+    return x.to(dtype).to(torch.float32)
+
 KINDS = ("MS", "BP")
 LAUNCHES = {kind: 0 for kind in KINDS}
+BF16_LAUNCHES = {kind: 0 for kind in KINDS}  # of them, with bf16 state
 
 _BIG = 1e30  # stand-in for +inf in the min reductions, as in the reference
 _KERNEL_MAX_DEG = 16      # largest block-row degree flood_qc.cu is built for
@@ -64,10 +83,10 @@ _MAX_SMEM = 232448        # shared memory one block can use on an H100
 _MAX_THREADS = 1024       # threads of one block
 _VARS_PER_THREAD = 3      # phase 2's variables a thread keeps in registers
 # the C signature of flood_qc_decode: syn, B, kind; lch, beta, clamp;
-# max_iter, L, m_b, n_b, deg, threads; the seven device pointers and the
-# stream
+# max_iter, L, m_b, n_b, deg, threads, bf16; the seven device pointers
+# and the stream
 ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
             + [ctypes.c_void_p] * 8)
 
 
@@ -78,20 +97,25 @@ def uniform_degree(st):
     return degs.pop() if len(degs) == 1 else None
 
 
-def smem_bytes(tabs: QCTables) -> int:
-    """Shared memory the kernel needs for one shot's state and tables."""
-    S = tabs.n_slots
-    return 4 * (tabs.n + 2 * S * tabs.L + tabs.m) + 4 * (3 * S + tabs.n_b + 1)
+def smem_bytes(tabs: QCTables, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory the kernel needs for one shot's state and tables: the
+    posterior and the messages in `dtype` (padded to a word), the float32
+    deltas and syndrome signs, the int32 tables."""
+    S, E = tabs.n_slots, tabs.n_slots * tabs.L
+    esize = torch.finfo(dtype).bits // 8
+    return (4 * -(-esize * (tabs.n + E) // 4) + 4 * (E + tabs.m)
+            + 4 * (3 * S + tabs.n_b + 1))
 
 
-def supports(st, tabs: QCTables) -> bool:
+def supports(st, tabs: QCTables, dtype: torch.dtype = torch.float32) -> bool:
     """True when kernel F can decode this code: a uniform block-row degree
-    within the degrees the kernel is built for, and one shot's state within
-    a block's shared memory. Asked where the kernel is selected, on every
-    device; a code beyond either limit goes to the per-slot kernel."""
+    within the degrees the kernel is built for, and one shot's state (in
+    `dtype`) within a block's shared memory. Asked where the kernel is
+    selected, on every device; a code beyond either limit goes to the
+    per-slot kernel."""
     deg = uniform_degree(st)
     return (deg is not None and 1 <= deg <= _KERNEL_MAX_DEG
-            and smem_bytes(tabs) <= _MAX_SMEM)
+            and smem_bytes(tabs, dtype) <= _MAX_SMEM)
 
 
 def plan(tabs: QCTables) -> int:
@@ -192,9 +216,11 @@ def flood_qc_plain(dec, syn: torch.Tensor, lch: float):
     B = syn.shape[0]
     dev = syn.device
     f32 = torch.float32
+    dt = dec.state_dtype
     syn_T = syn.T.contiguous()                           # (m, B)
     ss = (1.0 - 2.0 * syn_T).view(m_b, 1, L, B)
-    post = torch.full((tabs.n, B), lch, dtype=f32, device=dev)
+    post = round_state(torch.full((tabs.n, B), lch, dtype=f32, device=dev),
+                       dt)
     c2v = torch.zeros((S, L, B), dtype=f32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     n_iter = torch.full((B,), dec.max_iter, dtype=torch.int32, device=dev)
@@ -208,7 +234,7 @@ def flood_qc_plain(dec, syn: torch.Tensor, lch: float):
             new = _ms_stacked(V, dec.beta, ss)
         else:
             new = _bp_stacked(V, dec.clamp, ss)
-        new = torch.where(active, new.view(S, L, B), c2v)
+        new = torch.where(active, round_state(new.view(S, L, B), dt), c2v)
         delta = (new - c2v).view(S * L, B)
         c2v = new
         if has.shape[0]:
@@ -216,7 +242,7 @@ def flood_qc_plain(dec, syn: torch.Tensor, lch: float):
             for c in range(1, has.shape[0]):
                 acc = torch.where(has[c], acc + delta[dec.flood_back_idx[c]],
                                   acc)
-            post = torch.where(has[0], post + acc, post)
+            post = torch.where(has[0], round_state(post + acc, dt), post)
         est = torch.remainder(dec.H @ (post < 0.0).to(f32), 2.0)
         ok = (est == syn_T).all(dim=0)
         n_iter = torch.where(ok & ~done, it + 1, n_iter)
@@ -238,7 +264,7 @@ def flood_qc_cuda(dec, syn: torch.Tensor, lch: float):
     if not 1 <= deg <= _KERNEL_MAX_DEG:
         raise ValueError(f"block-row degree {deg} outside the kernel's "
                          f"1..{_KERNEL_MAX_DEG}")
-    need = smem_bytes(tabs)
+    need = smem_bytes(tabs, dec.state_dtype)
     if need > _MAX_SMEM:
         raise ValueError(f"one shot's state needs {need} bytes of shared "
                          f"memory, a block has {_MAX_SMEM}")
@@ -255,12 +281,15 @@ def flood_qc_cuda(dec, syn: torch.Tensor, lch: float):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(syn.data_ptr(), B, KINDS.index(dec.kind), lch, dec.beta,
             dec.clamp, dec.max_iter, tabs.L, tabs.m_b, tabs.n_b, deg,
-            dec.flood_threads, dec.slot_j.data_ptr(),
+            dec.flood_threads, int(dec.state_dtype == torch.bfloat16),
+            dec.slot_j.data_ptr(),
             dec.slot_s.data_ptr(), dec.flood_col_ptr.data_ptr(),
             dec.flood_col_k.data_ptr(),
             post.data_ptr(), n_iter.data_ptr(), conv.data_ptr(), stream)
     _build.check(lib, "flood_qc", rc)
     LAUNCHES[dec.kind] += 1
+    if dec.state_dtype == torch.bfloat16:
+        BF16_LAUNCHES[dec.kind] += 1
     return post, n_iter, conv
 
 

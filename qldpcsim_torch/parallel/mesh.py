@@ -29,6 +29,7 @@ import concurrent.futures
 import dataclasses
 import datetime
 import os
+import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -184,6 +185,14 @@ def per_device_multi_chunk_fn(mesh: Mesh, bodies: Sequence[Callable],
     that has none (its counters are zero)."""
     if mesh.size % rows:
         raise ValueError(f"{rows} p-rows do not divide {mesh.size} slots")
+    cards = {d for d in mesh.devices if d.type == "cuda"}
+    if len(cards) > 1:
+        warnings.warn(
+            f"one process drives {len(cards)} cards from its slot threads, "
+            "which contend for the host: this runs slower than one card. "
+            "Start one process per card: `python -m qldpcsim_torch --mesh` "
+            f"or `torchrun --nproc-per-node {len(cards)}`.", RuntimeWarning,
+            stacklevel=2)
     per_row = mesh.size // rows
     pools = [concurrent.futures.ThreadPoolExecutor(
         max_workers=1, initializer=_bind, initargs=(d,),

@@ -1068,3 +1068,180 @@ def test_launch_on_the_current_card_passes_the_device_check(cuda_device):
     before = channel_cuda.LAUNCHES
     channel_cuda.sample_tiles_cuda(keys, 0.05, 84, 64)
     assert channel_cuda.LAUNCHES == before + 1
+
+
+# --- the bf16 state (kernels B and F) and the stacked-update writeback
+# (kernel B) against their plain versions, bit for bit
+
+BF16 = torch.bfloat16
+
+
+def _qc(st_or_H, sched, device, max_iter, kind="MS", chk="iter",
+        layers=None, **kw):
+    st = st_or_H if isinstance(st_or_H, QCStructure) else detect_qc(st_or_H)
+    if layers is None and not isinstance(st_or_H, QCStructure):
+        layers = build_layers(st_or_H, sched)
+    return ms_qc_cuda.make_qc_decoder(
+        st, DecoderConfig(dec_type=kind, max_iter=max_iter, schedule=sched,
+                          qc_check_every=chk),
+        layers=layers, device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code,sched,B,p_err", [
+    ("lp118_0", "L", 4096, 0.05),  # the flagship's shape
+    ("lp118_0", "F", 4096, 0.03),  # config 5's
+    ("lp118_0", "L", 1, 0.05), ("lp118_0", "L", 4099, 0.05),
+    ("lp118_0", "L", 64, 0.0), ("lp118_0", "F", 300, 0.2),
+    ("tanner", "L", 300, 0.05), ("tanner", "F", 129, 0.05),
+    ("lp04_0", "F", 300, 0.05), ("lp04_0", "L", 300, 0.05),
+])
+def test_bf16_qc_kernel_equals_plain(cuda_device, kind, code, sched, B,
+                                     p_err):
+    """Kernel B with the bf16 state, under the mapping its tables choose and
+    the other one, bit for bit with its plain version (posterior included);
+    every posterior word is a bf16 value."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = _qc(H, sched, cuda_device, 50 if kind == "MS" else 30, kind,
+              dtype=BF16, vec=False)
+    assert dec.state_dtype == BF16 and not dec.state_on_device
+    syn_T = _syndromes(7, H, B, p_err, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    chosen = dec.per_edge
+    for per_edge in (chosen, not chosen):
+        dec.per_edge = per_edge
+        kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    assert torch.equal(kp, kp.to(BF16).float())
+    if p_err == 0.0:
+        assert (ki == 1).all() and kc.all()
+    elif B > 1 and p_err < 0.2:
+        assert kc.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("name,sizes,chk", [
+    ("irregular", None, "iter"), ("irregular", None, "layer"),
+    ("irregular", "F", "iter"), ("deg12", "F", "iter"),
+    ("deg12", None, "layer"), ("irregular", (2, 1, 3), "iter"),
+    ("irregular", (2, 1, 3), "layer"), ("deg12", (2, 1), "layer"),
+])
+def test_bf16_qc_kernel_lifts_mappings_and_device_state(cuda_device, kind,
+                                                        name, sizes, chk):
+    """Kernel B in bf16 on the synthetic lifts (odd sizes, degree 12,
+    snapshot groups, the per-layer check), both mappings and both places
+    of the state."""
+    st = _synthetic_lift(name)
+    H = st.lift()
+    sched = "F" if sizes == "F" else "L"
+    layers = None if sizes in (None, "F") else _grouped_layers(st, sizes)
+    dec = _qc(st, sched, cuda_device, 20, kind, chk, layers=layers,
+              dtype=BF16, vec=False)
+    syn_T = _syndromes(4, H, 200, 0.04, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.04) / np.float32(3.0))
+    for on_device in (False, True):
+        dec.state_on_device = on_device
+        for per_edge in (False, True):
+            dec.per_edge = per_edge
+            kp, ki, kc = _assert_b_equals_plain(dec, syn_T, lch)
+    assert len(torch.unique(ki)) >= 2
+
+
+def _bf16_only_lift():
+    """A lift whose float32 state needs device memory under kernel B and is
+    too large for kernel F, while its bf16 state fits a block in both."""
+    L, m_b, n_b, deg = 128, 27, 8, 8
+    shifts = np.full((m_b, n_b), -1)
+    for i in range(m_b):
+        shifts[i, [(3 * i + t) % n_b for t in range(deg)]] = [
+            (i + 2 * t) % L for t in range(deg)]
+    return QCStructure(L=L, shifts=shifts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+def test_bf16_lift_that_fits_only_in_bf16(cuda_device, kind):
+    st = _bf16_only_lift()
+    H = st.lift()
+    syn = _syndromes(6, H, 64, 0.002, cuda_device)
+    lch = ms_qc_cuda.llr_prior(np.float32(0.01) / np.float32(3.0))
+    b32 = _qc(st, "F", cuda_device, 6, kind, dtype=torch.float32,
+              stacked=False)
+    b16 = _qc(st, "F", cuda_device, 6, kind, dtype=BF16, stacked=False)
+    assert b32.state_on_device and not b16.state_on_device
+    _assert_b_equals_plain(b16, syn.T.contiguous(), lch)
+    f16 = _qc(st, "F", cuda_device, 6, kind, dtype=BF16, stacked=True)
+    assert f16.stacked
+    assert not _qc(st, "F", cuda_device, 6, kind, dtype=torch.float32,
+                   stacked=True).stacked
+    _assert_f_equals_plain(f16, syn, lch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+@pytest.mark.parametrize("code,side,B,max_iter,small_block", [
+    ("lp118_0", "Hz", 4096, 99, False),   # config 5's shape
+    ("lp118_0", "Hz", 4096, 4, True),
+    ("lp118_0", "Hx", 300, 99, False),
+    ("lp04_0", "Hz", 300, 30, False),     # d = 7, odd sizes
+    ("tanner", "Hz", 129, 30, False),
+    ("tanner", "Hz", 129, 30, True),
+    ("lp118_0", "Hz", 1, 50, False),
+])
+def test_bf16_flood_qc_kernel_equals_plain(cuda_device, kind, code, side, B,
+                                           max_iter, small_block):
+    H = np.asarray(getattr(get_code(code), side)) % 2
+    dec = _qc(H, "F", cuda_device, max_iter, kind, dtype=BF16, stacked=True)
+    assert dec.stacked and dec.state_dtype == BF16
+    if small_block:
+        dec.flood_threads = _F_SMALL_BLOCK
+    syn = _syndromes(9, H, B, 0.04, cuda_device)
+    lch = ms_qc_cuda.llr_prior(np.float32(0.03) / np.float32(3.0))
+    kp, ki, kc = _assert_f_equals_plain(dec, syn, lch)
+    assert torch.equal(kp, kp.to(BF16).float())
+    assert B == 1 or kc.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("code,sched,B,p_err", [
+    ("lp118_0", "F", 4096, 0.05), ("lp118_0", "L", 4096, 0.05),
+    ("lp118_0", "L", 1, 0.05), ("lp118_0", "F", 4099, 0.05),
+    ("lp118_0", "L", 64, 0.0), ("lp118_0", "L", 300, 0.2),
+    ("tanner", "L", 300, 0.05), ("lp04_0", "F", 300, 0.05),
+])
+def test_vec_qc_kernel_equals_plain(cuda_device, dtype, code, sched, B,
+                                    p_err):
+    """Kernel B with the stacked-update writeback (MS, one check per
+    iteration): every lane of either mapping adds the delta fma(coef *
+    sign, mag, -R) and stores R + delta, bit for bit with the plain
+    version, with the state in shared and in device memory."""
+    H = np.asarray(get_code(code).Hz) % 2
+    dec = _qc(H, sched, cuda_device, 50, dtype=dtype, vec=True)
+    assert dec.vec
+    syn_T = _syndromes(7, H, B, p_err, cuda_device).T.contiguous()
+    lch = ms_qc_cuda.llr_prior(np.float32(0.05) / np.float32(3.0))
+    chosen = dec.per_edge
+    for on_device in (False, True):
+        dec.state_on_device = on_device
+        for per_edge in (chosen, not chosen):
+            dec.per_edge = per_edge
+            _assert_b_equals_plain(dec, syn_T, lch)
+
+
+@pytest.mark.cuda
+def test_vec_on_synthetic_lifts_equals_plain(cuda_device):
+    for name, sizes in (("irregular", None), ("deg12", "F"),
+                        ("irregular", (2, 1, 3))):
+        st = _synthetic_lift(name)
+        sched = "F" if sizes == "F" else "L"
+        layers = None if sizes in (None, "F") else _grouped_layers(st, sizes)
+        dec = _qc(st, sched, cuda_device, 20, layers=layers, vec=True)
+        assert dec.vec
+        syn_T = _syndromes(4, st.lift(), 200, 0.04,
+                           cuda_device).T.contiguous()
+        lch = ms_qc_cuda.llr_prior(np.float32(0.04) / np.float32(3.0))
+        for per_edge in (False, True):
+            dec.per_edge = per_edge
+            _assert_b_equals_plain(dec, syn_T, lch)

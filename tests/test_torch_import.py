@@ -46,6 +46,7 @@ print(",".join(bad))
     "PCMlibrary; import qldpcsim_torch.compat.PMClibrary",
     "import qldpcsim_torch.parallel.mesh, qldpcsim_torch.codes.export_data; "
     "from qldpcsim_torch import simulate_sweep",
+    "import qldpcsim_torch.parallel.launch",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -68,7 +69,8 @@ def _imported_modules(path: Path):
 
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_mesh.py"]
+                                         ROOT / "chip_mesh.py",
+                                         ROOT / "chip_compare.py"]
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"qldpcsim_torch/cli.py", "qldpcsim_torch/__main__.py",
@@ -76,6 +78,7 @@ def test_no_jax_import_in_source():
             "qldpcsim_torch/utils/profiling.py",
             "qldpcsim_torch/ops/flood_qc_cuda.py",
             "qldpcsim_torch/parallel/mesh.py",
+            "qldpcsim_torch/parallel/launch.py",
             "qldpcsim_torch/codes/export_data.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
