@@ -180,6 +180,25 @@ Phases (any failure raises and exits non-zero):
      counters equal for MS (two chunks), qBLER within 4 sigma for BP (one
      chunk); the writeback's
      first chunks beside the default run's (phase 8);
+ 29. the group-deferred cascade (`engine/group_cascade.py`, each pipeline
+     built with QLDPC_GROUP_CASCADE=1): counters and average iterations
+     equal to the in-chunk cascade's on the same shots, for the flagship
+     (phase 7's), config 4 at p = 0.01 and 0.1 (phase 13's) and config 5
+     on kernels F and C (QLDPC_QC_STACKED=1, the run without the gate in
+     this phase); for each path and its in-chunk twin the launches and
+     host syncs (torch.nonzero) per chunk, the head stages' lanes, the
+     deferred records, the overflowed chunks and the tail's lanes and
+     windows; warm shots/s with and without the gate in turns, each window
+     about a second (the flagship on 1,048,576 shots three times, config 4
+     at p = 0.1 on 131,072 twice, config 5 on kernel F on 1,048,576
+     twice); a CUDA-event breakdown of a chunk with the stragglers'
+     torch.nonzero, their record gathers and the group finish each as its
+     own span, and the card's idle gaps between launches as the residual;
+ 30. the native GF(2) core (`gf2/native.py`) built on the card's host into
+     the port's build directory; rank and rref of phase 6's 1200 x 2400
+     matrix equal to the numpy path's (QLDPC_NATIVE=0), each timed on the
+     host; ShotPipeline construction of the flagship and config 4 timed
+     with and without it;
  M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
      per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
      A launched once per chunk and slot, warm shots/s beside phase 7's and a
@@ -2453,6 +2472,304 @@ def main():
           and runs["flagship vec"][2]["B vec"] > 0,
           "every variant's kernel launched on its path")
     check(all(k not in os.environ for k in flags), "the flags are unset")
+    # 29. the group-deferred cascade: each pipeline built with the gate in
+    # the environment, its counters held to the in-chunk cascade's on the
+    # same shots, the counts set to 0 just before each run
+    phase("29 group cascade (QLDPC_GROUP_CASCADE=1)")
+    from qldpcsim_torch.engine import group_cascade
+
+    gate = {group_cascade.ENV: "1"}
+    stacked = {"QLDPC_QC_STACKED": "1"}
+
+    def build(Hx_, Hz_, cfg_, env):
+        """A pipeline built with exactly `env` of the gate and
+        QLDPC_QC_STACKED (both are read when it is built)."""
+        names_ = (group_cascade.ENV, "QLDPC_QC_STACKED")
+        saved = {k: os.environ.pop(k, None) for k in names_}
+        os.environ.update(env)
+        try:
+            return ShotPipeline(Hx_, Hz_, cfg_)
+        finally:
+            for k in names_:
+                os.environ.pop(k, None)
+                if saved[k] is not None:
+                    os.environ[k] = saved[k]
+
+    def counters_of(r):
+        return dict(r.counters, avg_x=r.avg_iterations_x,
+                    avg_z=r.avg_iterations_z)
+
+    real_nonzero = torch.nonzero
+    nonzero_calls = [0]
+
+    def counting_nonzero(*a, **k):
+        nonzero_calls[0] += 1
+        return real_nonzero(*a, **k)
+
+    def counted(label, Hx_, Hz_, p_, cfg_, pipe_, p_index=0):
+        """simulate_p on pipe_ with every count at 0 just before: the result,
+        the launches and the host syncs (torch.nonzero calls) per chunk."""
+        gc = pipe_.group_cascade
+        if gc is not None:
+            gc.deferred = gc.gc_overflows = gc.syncs = 0
+            gc.tail_lanes = {"x": 0, "z": 0}
+            gc.tail_windows = {"x": 0, "z": 0}
+        for casc in ((gc.head_x, gc.head_z) if gc is not None
+                     else (pipe_.dec_x, pipe_.dec_z)):
+            if hasattr(casc, "stage_lanes"):
+                casc.stage_lanes = [0] * len(casc.stages)
+        pipe_.osd_syncs = 0
+        reset_launches()
+        nonzero_calls[0] = 0
+        torch.nonzero = counting_nonzero
+        try:
+            r = simulate_p(Hx_, Hz_, p_, cfg_, pipeline=pipe_,
+                           p_index=p_index)
+        finally:
+            torch.nonzero = real_nonzero
+        la = read_launches()
+        check_fused(la, label)
+        n_ch = -(-cfg_.shots // pipe_.batch)
+        per = {k: round(v / n_ch, 2) for k, v in la.items() if v}
+        print(f"{label}: {cfg_.shots} shots in {n_ch} chunks; counters "
+              f"{json.dumps(r.counters)}, avg iterations X "
+              f"{r.avg_iterations_x!r} Z {r.avg_iterations_z!r}; launches "
+              f"per chunk {per}; host syncs (torch.nonzero) per chunk "
+              f"{nonzero_calls[0] / n_ch:.2f}")
+        if gc is not None:
+            lanes = (f"head stage lanes {gc.head_x.stages}: X "
+                     f"{gc.head_x.stage_lanes}, Z {gc.head_z.stage_lanes}; "
+                     if hasattr(gc.head_x, "stage_lanes") else
+                     f"head: the plain {gc.head_x.max_iter}-iteration "
+                     "decoder; ")
+            print(f"  group cascade: {lanes}records deferred {gc.deferred}; "
+                  f"overflowed chunks {gc.gc_overflows} of {n_ch} (cap "
+                  f"{gc.defer_cap}); tail lanes X {gc.tail_lanes['x']} Z "
+                  f"{gc.tail_lanes['z']} in windows X "
+                  f"{gc.tail_windows['x']} Z {gc.tail_windows['z']} (of at "
+                  f"most {gc.window}); its own host syncs "
+                  f"{gc.syncs / n_ch:.2f} per chunk; OSD's "
+                  f"{pipe_.osd_syncs / n_ch:.2f}")
+        else:
+            casc = pipe_.dec_x
+            if hasattr(casc, "stage_lanes"):
+                print(f"  in-chunk cascade: lanes per stage {casc.stages}: X "
+                      f"{casc.stage_lanes}, Z {pipe_.dec_z.stage_lanes}")
+        return r, la
+
+    def warm_pair(label, Hx_, Hz_, p_, cfg_, pipes, shots_, p_index=0,
+                  rounds=1):
+        """Warm shots/s of each pipeline of `pipes` (name -> pipeline) on
+        the same `shots_` shots, in turns, `rounds` times."""
+        rates = {k: [] for k in pipes}
+        for _ in range(rounds):
+            for name_, pipe_ in pipes.items():
+                r = simulate_p(Hx_, Hz_, p_, dataclasses.replace(
+                    cfg_, shots=shots_), pipeline=pipe_, p_index=p_index)
+                check(r.shots == shots_ and 0.0 <= r.qbler <= 1.0,
+                      f"timed run {label} {name_}")
+                rates[name_].append((r.shots_per_s_warm, r.warm_time_s,
+                                     r.qbler))
+        print(f"  timed, {label}, {shots_} shots: " + "; ".join(
+            f"{name_} " + ", ".join(f"{v:.1f} shots/s ({w:.3f} s warm)"
+                                    for v, w, _ in rs)
+            for name_, rs in rates.items()) + f"  [{smi}]")
+        qs = {rs[0][2] for rs in rates.values()}
+        check(len(qs) == 1, f"timed {label}: the same qBLER on every path")
+        return rates
+
+    def gc_breakdown(label, pipe_, p_, chunks, p_index=0):
+        """Mean CUDA-event ms of a group-cascade chunk's spans over `chunks`
+        full chunks (channel, head X, head Z, classify, the stragglers'
+        torch.nonzero with its host sync, the record gathers, a finish an
+        overflow forced inside the chunk, and the residual: the chunk's
+        time outside every span, which is the card waiting on the host
+        between launches), and of one group finish over their records,
+        divided by `chunks` (not part of any launch count). A span inside
+        another one counts in the outer one alone."""
+        gc = pipe_.group_cascade
+        key_p = fold_in(prng_key(SEED, device=dev), p_index)
+        tpc_ = pipe_.tiles_per_chunk
+        spans = {"channel": 0.0, "head X": 0.0, "head Z": 0.0,
+                 "classify": 0.0, "nonzero (host sync)": 0.0,
+                 "record gathers": 0.0, "finish in the chunk": 0.0,
+                 "group finish": 0.0}
+        events, where, depth = [], ["finish in the chunk"], [0]
+
+        def wrap(obj, attr, name_):
+            f = getattr(obj, attr)
+
+            def timed(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                depth[0] += 1
+                try:
+                    out = f(*a, **k)
+                finally:
+                    depth[0] -= 1
+                e1.record()
+                if depth[0] == 0:
+                    events.append((name_ if name_ else where[0], e0, e1))
+                return out
+
+            setattr(obj, attr, timed)
+
+        plain_classify = group_cascade.classify_batch
+        wrap(pipe_, "_sample_chunk", "channel")
+        wrap(gc.head_x, "forward", "head X")
+        wrap(gc.head_z, "forward", "head Z")
+        wrap(group_cascade, "classify_batch", "classify")
+        wrap(gc, "finish", None)
+        wrap(gc, "_records", "record gathers")
+        wrap(torch, "nonzero", "nonzero (host sync)")
+        chunk_ms, recs = 0.0, []
+        try:
+            for ci in range(chunks):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                _, rec = gc.chunk(chunk_keys(key_p, ci * tpc_, tpc_), p_,
+                                  pipe_.batch)
+                e1.record()
+                e1.synchronize()
+                chunk_ms += e0.elapsed_time(e1)
+                if rec is not None:
+                    recs.append(rec)
+            where[0] = "group finish"
+            if recs:
+                gc.finish(recs, p_)
+            torch.cuda.synchronize()
+        finally:
+            for obj, attr in ((pipe_, "_sample_chunk"),
+                              (gc.head_x, "forward"), (gc.head_z, "forward"),
+                              (gc, "finish"), (gc, "_records")):
+                delattr(obj, attr)
+            group_cascade.classify_batch = plain_classify
+            torch.nonzero = real_nonzero
+        for name_, e0, e1 in events:
+            spans[name_] += e0.elapsed_time(e1)
+        spans["residual (host gaps)"] = chunk_ms - sum(
+            v for k, v in spans.items() if k != "group finish")
+        order = ("channel", "head X", "head Z", "classify",
+                 "nonzero (host sync)", "record gathers",
+                 "residual (host gaps)", "finish in the chunk",
+                 "group finish")
+        total = sum(spans.values()) / chunks
+        parts = ", ".join(f"{k} {spans[k] / chunks:.4f} "
+                          f"({100 * spans[k] / chunks / total:.1f}%)"
+                          for k in order)
+        print(f"  {label}: group-cascade chunk breakdown (CUDA events, mean "
+              f"of {chunks} chunks, one group finish over "
+              f"{sum(r_['cx'].shape[0] for r_ in recs)} records, ms): "
+              f"{parts}, total {total:.4f}  [{smi}]")
+
+    t_gc = time.perf_counter()
+    # (a) the flagship against phase 7
+    pipe_gc = build(Hx, Hz, cfg, gate)
+    check(pipe_gc.group_cascade is not None and pipe.group_cascade is None,
+          "the gate decides the path when the pipeline is built")
+    counted("flagship, in-chunk cascade", Hx, Hz, P_POINT, cfg, pipe)
+    r29, la29 = counted("flagship, group cascade", Hx, Hz, P_POINT, cfg,
+                        pipe_gc)
+    check(counters_of(r29) == counters_of(res),
+          "29 flagship: counters and iterations equal to phase 7's")
+    check(la29["ms_qc MS"] > 0, "kernel B launched under the group cascade")
+    gc_rates = {"flagship": warm_pair(
+        "flagship", Hx, Hz, P_POINT, cfg,
+        {"in-chunk": pipe, "group cascade": pipe_gc}, TIMED_SHOTS, rounds=3)}
+    gc_breakdown("flagship", pipe_gc, P_POINT, BREAKDOWN_CHUNKS)
+    # (b) config 4 at p = 0.01 and 0.1 against phase 13's sweep
+    pipe4_gc = build(Tx, Tz, cfg4, gate)
+    check(not pipe4_gc.group_cascade.head_x.highp_guard
+          and pipe4.dec_x.highp_guard,
+          "config 4: the head has no high-p guard, the in-chunk cascade has")
+    for i in (0, len(C4_P) - 1):
+        counted(f"config 4 p={C4_P[i]}, in-chunk cascade", Tx, Tz, C4_P[i],
+                cfg4, pipe4, p_index=i)
+        r_, la_ = counted(f"config 4 p={C4_P[i]}, group cascade", Tx, Tz,
+                          C4_P[i], cfg4, pipe4_gc, p_index=i)
+        check(counters_of(r_) == counters_of(res4[i]),
+              f"29 config 4 p={C4_P[i]}: counters and iterations equal to "
+              "phase 13's")
+        check(la_["seq_qc MS"] > 0, "kernel D launched under the gate")
+    gc_rates["config 4 p=0.1"] = warm_pair(
+        f"config 4 p={C4_P[-1]}", Tx, Tz, C4_P[-1], cfg4,
+        {"in-chunk": pipe4, "group cascade": pipe4_gc}, C4_TIMED_SHOTS[-1],
+        p_index=len(C4_P) - 1, rounds=2)
+    gc_breakdown(f"config 4 p={C4_P[-1]}", pipe4_gc, C4_P[-1],
+                 C4_BREAKDOWN_CHUNKS, p_index=len(C4_P) - 1)
+    # (c) config 5 on kernels F and C, with and without the gate
+    pipe5_f = build(Hx, Hz, cfg5, stacked)
+    pipe5_gc = build(Hx, Hz, cfg5, dict(stacked, **gate))
+    check(pipe5_f.dec_x.decs[0].stacked
+          and pipe5_gc.group_cascade.tail_x.stacked,
+          "config 5: both pipelines decode on kernel F")
+    r5f, _ = counted("config 5 on kernel F, in-chunk cascade", Hx, Hz, C5_P,
+                     cfg5, pipe5_f)
+    r5g, la5g = counted("config 5 on kernel F, group cascade", Hx, Hz, C5_P,
+                        cfg5, pipe5_gc)
+    check(counters_of(r5g) == counters_of(r5f),
+          "29 config 5 on kernel F: counters and iterations equal without "
+          "the gate")
+    print(f"  config 5 on kernel F in this phase against phase 23's "
+          f"cli.main run of the same shots: counters equal "
+          f"{r5f.counters == {k: row5[k] for k in r5f.counters}}")
+    check(la5g["flood_qc BP"] > 0 and la5g["gf2_elim"] > 0
+          and la5g["ms_qc BP"] == 0,
+          "kernels F (BP) and C launched under the group cascade")
+    gc_rates["config 5 F"] = warm_pair(
+        "config 5 on kernel F", Hx, Hz, C5_P, cfg5,
+        {"in-chunk": pipe5_f, "group cascade": pipe5_gc}, TIMED_SHOTS,
+        rounds=2)
+    gc_breakdown("config 5 on kernel F", pipe5_gc, C5_P, BREAKDOWN_CHUNKS)
+    print(f"phase 29: {time.perf_counter() - t_gc:.1f} s")
+
+    # 30. the native GF(2) core on the card's host
+    phase("30 native GF(2) core (QLDPC_NATIVE)")
+    from qldpcsim_torch import gf2
+    from qldpcsim_torch.gf2 import native
+
+    check(os.environ.get("QLDPC_NATIVE", "1") != "0", "QLDPC_NATIVE unset")
+    lib = native.get_lib()
+    check(lib is not None and native.LIB_PATH.parent == _build.build_dir(),
+          "the native GF(2) core built into the port's build directory")
+    print(f"native core {native.LIB_PATH} (ABI {native._abi_version(lib)})")
+
+    def on_numpy(fn):
+        os.environ["QLDPC_NATIVE"] = "0"
+        try:
+            return fn()
+        finally:
+            del os.environ["QLDPC_NATIVE"]
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    (rk_n, t_rk_n) = host_s(lambda: gf2.rank(Hbig))
+    (rr_n, t_rr_n) = host_s(lambda: gf2.rref(Hbig))
+    (rk_p, t_rk_p) = on_numpy(lambda: host_s(lambda: gf2.rank(Hbig)))
+    (rr_p, t_rr_p) = on_numpy(lambda: host_s(lambda: gf2.rref(Hbig)))
+    same = (rk_n == rk_p and list(rr_n[2]) == list(rr_p[2])
+            and np.array_equal(rr_n[0], rr_p[0])
+            and np.array_equal(rr_n[1], rr_p[1]))
+    print(f"1200 x 2400 (phase 6): rank {rk_n} native {1e3 * t_rk_n:.1f} ms, "
+          f"numpy {1e3 * t_rk_p:.1f} ms; rref native {1e3 * t_rr_n:.1f} ms, "
+          f"numpy {1e3 * t_rr_p:.1f} ms; equal {same} (host clock)")
+    check(same, "30: rank and rref equal the numpy path's")
+    for label, H_a, H_b, cfg_ in (("flagship", Hx, Hz, cfg),
+                                  ("config 4", Tx, Tz, cfg4)):
+        t_n = [host_s(lambda: ShotPipeline(H_a, H_b, cfg_))[1]
+               for _ in range(2)]
+        t_p = [on_numpy(lambda: host_s(
+            lambda: ShotPipeline(H_a, H_b, cfg_))[1]) for _ in range(2)]
+        print(f"  ShotPipeline construction, {label}: native "
+              + ", ".join(f"{t:.3f}" for t in t_n) + " s; QLDPC_NATIVE=0 "
+              + ", ".join(f"{t:.3f}" for t in t_p) + f" s (host clock)  "
+              f"[{smi}]")
+    print(f"phases 29-30: {time.perf_counter() - t_gc:.1f} s")
     t_mesh = time.perf_counter()
 
     # M1. the flagship on a 2-slot mesh of the one card: a host thread per

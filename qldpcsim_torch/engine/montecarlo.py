@@ -61,6 +61,7 @@ from qldpcsim_torch.decoders import (
     make_decoder,
 )
 from qldpcsim_torch.decoders.osd import OSD
+from qldpcsim_torch.engine import group_cascade
 from qldpcsim_torch.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_torch.engine.results import PPointResult, format_results_table
 from qldpcsim_torch.ops import _build
@@ -140,6 +141,10 @@ class SimConfig:
                                   # (the one mode: a host thread per local
                                   # slot, counters summed on the host and
                                   # over processes); env QLDPC_EXEC_MODE
+    sort_window: int = -1         # accepted and ignored: the reference's
+                                  # shot ordering evens out its 128-lane
+                                  # blocks, and the kernels here run a
+                                  # block per shot
 
     def decoder_config(self) -> DecoderConfig:
         return DecoderConfig(
@@ -212,7 +217,11 @@ class ShotPipeline(nn.Module):
     decoder-failed shots when `cfg.osd_order >= 0` (MS and BP only, as the
     reference: BF and NG give no posterior), and the classifier.
     `osd_shots` counts the shots each side sent to OSD, `osd_syncs` the
-    host syncs of the OSD path (one per `torch.nonzero`).
+    host syncs of the OSD path (one per `torch.nonzero`). With
+    `QLDPC_GROUP_CASCADE=1` in the environment when it is built (MS and BP
+    with a cascade) its key groups run the group-deferred cascade
+    (`engine/group_cascade.py`, `self.group_cascade`), which changes no
+    counter.
 
     With `cfg.mesh` the pipeline is the layout of a sharded run: a chunk of
     `batch` shots is `n_dev` slots of `per_dev` shots (`tiles_per_dev`
@@ -245,6 +254,7 @@ class ShotPipeline(nn.Module):
         self.tile = _tile_size(self.batch, self.per_dev)
         self.tiles_per_dev = self.per_dev // self.tile
         self.tiles_per_chunk = self.batch // self.tile
+        self.group_cascade = None
         if self.mesh is not None:
             if (self.mesh.world_size > 1
                     and any(d.type == "cuda" for d in self.mesh.devices)):
@@ -285,6 +295,9 @@ class ShotPipeline(nn.Module):
             self.osd_z = OSD(self.Hx, cfg.osd_order, device=self.device)
         self.osd_shots = {"x": 0, "z": 0}
         self.osd_syncs = 0
+        # read once, here: the gate is no counter, so no checkpoint id
+        if group_cascade.enabled(dcfg):
+            self.group_cascade = group_cascade.GroupCascade(self)
         self.encoder = (CSSEncoder.build(self.Hx, self.Hz)
                         if cfg.validate_encoding else None)
         self.classifier = ClassifierStatic.build(self.Hx, self.Hz,
@@ -429,7 +442,12 @@ class ShotPipeline(nn.Module):
         """Chunks keys[0], keys[1], ... ((g, tiles, 2)) with n_valids[i]
         valid shots each; counters summed on the device. With OSD on, the
         chunks defer their decoder-failed shots to a group-level OSD pass,
-        which runs when `_OSD_PENDING_MAX` records wait and at the end."""
+        which runs when `_OSD_PENDING_MAX` records wait and at the end.
+        Under the group cascade its chunks defer their stragglers instead,
+        with the same flushes (`GroupCascade.multi_chunk_body`)."""
+        if self.group_cascade is not None:
+            return self.group_cascade.multi_chunk_body(keys, p, n_valids,
+                                                       _OSD_PENDING_MAX)
 
         def add(total, counts):
             return counts if total is None else {
@@ -605,7 +623,10 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
         # global tile stream: chunk c owns tiles [c * tpc, (c + 1) * tpc)
         keys = chunk_keys(key, c * tpc, g * tpc).reshape(g, tpc, 2)
         n_valids = [min(batch, shots - i * batch) for i in range(c, c + g)]
-        counts = (pipe._chunk_body(keys[0], p, n_valids[0]) if first
+        # the first chunk alone on the in-chunk path, but under the group
+        # cascade, whose chunks a run's first one must exercise as well
+        counts = (pipe._chunk_body(keys[0], p, n_valids[0])
+                  if first and pipe.group_cascade is None
                   else pipe._multi_chunk_body(keys, p, n_valids))
         return torch.stack([counts[k].to(torch.int64)
                             for k in _COUNTER_KEYS]).cpu()

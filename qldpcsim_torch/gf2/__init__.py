@@ -2,11 +2,13 @@
 
 Host-side (NumPy, bit-packed uint64 word-parallel) routines used for static
 preprocessing: rank, RREF, nullspace and logical operators. The port's own
-copy of `qldpcsim_tpu/gf2` (`dense.py`, `logical.py`). The JAX package
-dispatches its eliminations to a C++ core and quietly falls back to numpy
-when that core is not built; the port takes the numpy path alone, with no
-dispatch and no fallback (it runs once per `ShotPipeline`, on the host, and
-gives the same pivots and bases).
+copy of `qldpcsim_tpu/gf2` (`dense.py`, `logical.py`, `native.py`). As in
+the JAX package, the eliminations and the rank dispatch to the native C++
+core (`native.py`, `csrc/gf2core.cpp`, built with g++ on first use;
+`QLDPC_NATIVE=0` turns it off). Where it cannot be built, the first call
+warns with the compiler's error and the numpy path runs, which gives the
+same pivots, ranks and bases. It runs when a `ShotPipeline` is built, on
+the host.
 
 Reference parity: qLDPCsim/gf2math.py:12-244 (rank, REF, nullSpace, rowBasis,
 systematic_form) plus the deleted `logical_ops_css` capability (SURVEY.md §2.6).

@@ -11,9 +11,11 @@ word-parallel XOR over ~n/64 words applied to all selected rows at once via
 NumPy fancy indexing — O(n · m·n/64) instead of the reference's per-element
 Python loops. All public functions accept/return plain 0/1 integer arrays.
 
-The port's own copy of `qldpcsim_tpu/gf2/dense.py`, numpy path only: the JAX
-package's dispatch to its C++ core (and the silent fallback when the core is
-not built) is not carried. Results are the same.
+The port's own copy of `qldpcsim_tpu/gf2/dense.py`. `rank` and
+`_eliminate_packed` dispatch to the native C++ core (`native.py`, over
+`csrc/gf2core.cpp`) when it is built and `QLDPC_NATIVE` is not "0", and
+otherwise run the numpy elimination below; both give the same pivots, ranks
+and bases.
 """
 
 from __future__ import annotations
@@ -55,7 +57,13 @@ def _eliminate_packed(R: np.ndarray, n: int, T: np.ndarray | None = None,
 
     Returns (pivot_cols, row_count_used). If T is given it receives the same
     row operations (so T tracks the transform with R_out = T @ R_in mod 2).
+    Dispatches to the native core when it is available.
     """
+    from qldpcsim_torch.gf2.native import eliminate_native
+
+    piv = eliminate_native(R, n, T, reduced)
+    if piv is not None:
+        return piv, len(piv)
     m = R.shape[0]
     pivots: list[int] = []
     row = 0
@@ -86,11 +94,17 @@ def _eliminate_packed(R: np.ndarray, n: int, T: np.ndarray | None = None,
 
 
 def rank(A: np.ndarray) -> int:
-    """Rank of a binary matrix over GF(2) (reference: gf2math.py:91-135)."""
+    """Rank of a binary matrix over GF(2) (reference: gf2math.py:91-135),
+    on the native core when it is available."""
     A = np.asarray(A)
     if A.size == 0:
         return 0
     R = pack_rows(A)
+    from qldpcsim_torch.gf2.native import rank_native
+
+    r = rank_native(R, A.shape[1])
+    if r is not None:
+        return r
     pivots, _ = _eliminate_packed(R, A.shape[1], reduced=False)
     return len(pivots)
 

@@ -1245,3 +1245,59 @@ def test_vec_on_synthetic_lifts_equals_plain(cuda_device):
         for per_edge in (False, True):
             dec.per_edge = per_edge
             _assert_b_equals_plain(dec, syn_T, lch)
+
+
+@pytest.mark.cuda
+def test_group_cascade_on_card(cuda_device, monkeypatch):
+    """A small flagship (8 chunks of 512 shots, MS-L-50 on lp118_0) on the
+    card with and without the group cascade (QLDPC_GROUP_CASCADE=1 when the
+    pipeline is built): counters and iterations equal, and equal to the
+    CPU's."""
+    from qldpcsim_torch.engine import group_cascade
+
+    monkeypatch.delenv(group_cascade.ENV, raising=False)
+    c = get_code("lp118_0")
+    cfg = SimConfig(shots=4096, dec_type="MS", dec_iterations=50,
+                    dec_schedule="L", batch_size=512, rng_seed=3,
+                    device="cuda")
+
+    def counters(r):
+        return dict(r.counters, avg_x=r.avg_iterations_x,
+                    avg_z=r.avg_iterations_z)
+
+    plain = counters(simulate_p(c.Hx, c.Hz, 0.05, cfg))
+    monkeypatch.setenv(group_cascade.ENV, "1")
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    monkeypatch.delenv(group_cascade.ENV)
+    assert pipe.group_cascade is not None
+    before = ms_qc_cuda.LAUNCHES["MS"]
+    new = counters(simulate_p(c.Hx, c.Hz, 0.05, cfg, pipeline=pipe))
+    assert ms_qc_cuda.LAUNCHES["MS"] > before
+    assert pipe.group_cascade.deferred > 0
+    on_cpu = counters(simulate_p(c.Hx, c.Hz, 0.05, dataclasses.replace(
+        cfg, device="cpu")))
+    assert new == plain == on_cpu
+
+
+@pytest.mark.cuda
+def test_group_cascade_bp_osd_on_card(cuda_device, monkeypatch):
+    """BP-F-99 + OSD-2 on lp118_0 (config 5's settings, 4 chunks of 1024):
+    kernels B and C decode each shot on its own, so the group cascade's
+    counters equal the in-chunk cascade's on the card."""
+    from qldpcsim_torch.engine import group_cascade
+
+    c = get_code("lp118_0")
+    cfg = SimConfig(shots=4096, dec_type="BP", dec_iterations=99,
+                    dec_schedule="F", osd_order=2, batch_size=1024,
+                    rng_seed=5, device="cuda")
+    monkeypatch.delenv(group_cascade.ENV, raising=False)
+    plain = simulate_p(c.Hx, c.Hz, 0.05, cfg)
+    monkeypatch.setenv(group_cascade.ENV, "1")
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    monkeypatch.delenv(group_cascade.ENV)
+    new = simulate_p(c.Hx, c.Hz, 0.05, cfg, pipeline=pipe)
+    assert pipe.group_cascade.deferred > 0
+    assert sum(pipe.osd_shots.values()) > 0
+    assert new.counters == plain.counters
+    assert new.avg_iterations_x == plain.avg_iterations_x
+    assert new.avg_iterations_z == plain.avg_iterations_z

@@ -47,6 +47,8 @@ print(",".join(bad))
     "import qldpcsim_torch.parallel.mesh, qldpcsim_torch.codes.export_data; "
     "from qldpcsim_torch import simulate_sweep",
     "import qldpcsim_torch.parallel.launch",
+    "import qldpcsim_torch.engine.group_cascade, qldpcsim_torch.gf2.native; "
+    "from qldpcsim_torch import gf2; gf2.rank([[1, 1], [0, 1]])",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -79,7 +81,9 @@ def test_no_jax_import_in_source():
             "qldpcsim_torch/ops/flood_qc_cuda.py",
             "qldpcsim_torch/parallel/mesh.py",
             "qldpcsim_torch/parallel/launch.py",
-            "qldpcsim_torch/codes/export_data.py"} <= names
+            "qldpcsim_torch/codes/export_data.py",
+            "qldpcsim_torch/engine/group_cascade.py",
+            "qldpcsim_torch/gf2/native.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
         for mod in _imported_modules(f):
