@@ -30,6 +30,13 @@ several cards have:
   5. config 4 (the Tanner code, MS-S-30, p = 0.01, 0.04, 0.07, 0.1, 32,768
      shots each) with `--mesh-p 2` over the same processes: per-p counters
      equal to the serial `simulate` on one card.
+  6. the benchmark's multi-card configuration, `python3 bench_torch.py
+     --config flagship_4card --chips N` (N the card count): it starts one
+     process per card itself, 4096 shots a card and chunk, 4,194,304 shots
+     a card; its line is `correct`, its check covers the first two chunks
+     (every card's shots, against the CPU), each rank ran kernel A once a
+     chunk, and its warm shots/s (from the slowest rank's window) is
+     printed with the chunk's spans and the idle share of rank 0.
 
 Every speed is printed beside the cards' names and power limits. The last
 line is {"ok": true, "device": {...}}; any failed check raises and exits
@@ -55,6 +62,10 @@ C4_FILES = ("data/Hx_T.npy", "data/Hz_T.npy")
 C4_P = [0.01, 0.04, 0.07, 0.1]
 C4_ITER, C4_SHOTS = 30, 8 * BATCH
 RANK_TIMEOUT_S = 300
+# phase 6: the benchmark's shots a card, and the seconds it may take (its
+# check decodes two 4-card chunks on the CPU)
+BENCH_SHOTS_A_CARD = 4 * 1024 * 1024
+BENCH_TIMEOUT_S = 600
 LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
                "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
@@ -320,6 +331,41 @@ def main():
               f"{r.shots_per_s_warm:.1f})  [{cards}]")
     for rank, la in enumerate(launches):
         check(la["seq_qc MS"] > 0, f"rank {rank}: kernel D launched")
+
+    phase(f"6 bench_torch.py --config flagship_4card on {n_cards} cards")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "lines.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "bench_torch.py"),
+             "--config", "flagship_4card", "--chips", str(n_cards),
+             "--shots", str(n_cards * BENCH_SHOTS_A_CARD), "--out", out],
+            cwd=HERE, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"bench_torch.py: rc {proc.returncode}"
+              f"\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            (line,) = [json.loads(ln) for ln in f]
+    check(line["correct"] is True and line["chips"] == n_cards
+          and line["batch"] == 4096 * n_cards,
+          f"flagship_4card: correct, {n_cards} cards, 4096 shots a card")
+    check(line["check"]["shots"] == 2 * line["batch"],
+          "flagship_4card: the check covers two chunks, every card's shots")
+    check(line["launches_per_chunk"].get("channel syndromes") == 1.0
+          and line["launches_per_chunk"].get("ms_qc MS", 0) > 0,
+          "flagship_4card: rank 0 ran kernel A once a chunk, and kernel B")
+    lay = line["layers_ms_per_chunk"]
+    print(f"flagship_4card, {n_cards} processes ({secs:.1f} s with their "
+          f"start): {line['shots']} shots, warm "
+          f"{line['shots_per_s_warm']:.1f} shots/s (the slowest rank's "
+          f"window {line['warm_time_s']:.3f} s); correct "
+          f"({line['check']['shots']} shots against the CPU); rank 0's "
+          f"chunk: " + ", ".join(f"{k} {v:.4f}" for k, v in lay.items())
+          + f" ms; idle share {line['idle_share']!r}; peak memory "
+          f"{line['peak_mem_bytes']} bytes; decode bound share "
+          f"{line['decode_bound_share']!r}; host {line['host_cpu']}  "
+          f"[{cards}]")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(cards)
     print(json.dumps({"ok": True, "device": {

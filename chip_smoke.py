@@ -199,6 +199,13 @@ Phases (any failure raises and exits non-zero):
      matrix equal to the numpy path's (QLDPC_NATIVE=0), each timed on the
      host; ShotPipeline construction of the flagship and config 4 timed
      with and without it;
+ 31. the benchmark entry point, `bench_torch.py`, in this process, for the
+     flagship and config 5 on kernel F at 262,144 shots: each line parses
+     and is `correct` (its first 8192 shots against the plain versions on
+     the CPU), and its counters and iterations equal those of the same
+     shots through phase 7's pipeline and through phase 23's command line
+     (kernel F opted in); warm shots/s, the chunk's spans, launches, host
+     syncs, idle share and peak memory printed;
  M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
      per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
      A launched once per chunk and slot, warm shots/s beside phase 7's and a
@@ -306,6 +313,8 @@ SLEEP_CYCLES = 20_000_000
 # the timed runs: enough shots for a warm window of a second or more
 TIMED_SHOTS = 256 * BATCH          # the flagship and config 5
 C4_TIMED_SHOTS = [256 * BATCH, 128 * BATCH, 64 * BATCH, 32 * BATCH]  # per p
+# phase 31: bench_torch.py's shots per configuration
+BENCH_SHOTS = 64 * BATCH
 # M2: the seconds a rank may take before the phase fails
 RANK_TIMEOUT_S = 240
 # M2d: two ranks time the counter all-reduce (9 counters, and 2 p-rows)
@@ -2615,11 +2624,10 @@ def main():
 
             setattr(obj, attr, timed)
 
-        plain_classify = group_cascade.classify_batch
         wrap(pipe_, "_sample_chunk", "channel")
         wrap(gc.head_x, "forward", "head X")
         wrap(gc.head_z, "forward", "head Z")
-        wrap(group_cascade, "classify_batch", "classify")
+        wrap(pipe_, "classify", "classify")
         wrap(gc, "finish", None)
         wrap(gc, "_records", "record gathers")
         wrap(torch, "nonzero", "nonzero (host sync)")
@@ -2641,11 +2649,10 @@ def main():
                 gc.finish(recs, p_)
             torch.cuda.synchronize()
         finally:
-            for obj, attr in ((pipe_, "_sample_chunk"),
+            for obj, attr in ((pipe_, "_sample_chunk"), (pipe_, "classify"),
                               (gc.head_x, "forward"), (gc.head_z, "forward"),
                               (gc, "finish"), (gc, "_records")):
                 delattr(obj, attr)
-            group_cascade.classify_batch = plain_classify
             torch.nonzero = real_nonzero
         for name_, e0, e1 in events:
             spans[name_] += e0.elapsed_time(e1)
@@ -2770,6 +2777,66 @@ def main():
               + ", ".join(f"{t:.3f}" for t in t_p) + f" s (host clock)  "
               f"[{smi}]")
     print(f"phases 29-30: {time.perf_counter() - t_gc:.1f} s")
+
+    # 31. bench_torch.py for the flagship and config 5 on kernel F, its
+    # lines held to phase 7's pipeline and phase 23's command line
+    phase("31 bench_torch.py (flagship, config5_F)")
+    t_bench = time.perf_counter()
+    import bench_torch
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = bench_torch.main(["--config", "flagship", "--config",
+                               "config5_F", "--shots", str(BENCH_SHOTS)])
+    lines = [json.loads(line) for line in text.getvalue().splitlines()]
+    check(rc == 0 and [ln["config"] for ln in lines]
+          == ["flagship", "config5_F"], f"31: bench_torch.py rc {rc}, "
+          f"lines {[ln.get('config') for ln in lines]}")
+    keys5 = list(res5.counters)
+    same = {}
+    r7 = simulate_p(Hx, Hz, P_POINT, dataclasses.replace(
+        cfg, shots=BENCH_SHOTS), pipeline=pipe)
+    same["flagship"] = (
+        {k: lines[0][k] for k in keys5} == r7.counters
+        and lines[0]["avg_iters_X"] == r7.avg_iterations_x
+        and lines[0]["avg_iters_Z"] == r7.avg_iterations_z)
+    os.environ["QLDPC_QC_STACKED"] = "1"
+    row23 = run_cli([*c5_args, "--shots", str(BENCH_SHOTS)])[0][0]
+    del os.environ["QLDPC_QC_STACKED"]
+    same["config5_F"] = (
+        {k: lines[1][k] for k in keys5} == {k: row23[k] for k in keys5}
+        and lines[1]["avg_iters_X"] == row23["Avg_number_of_iterations_X"]
+        and lines[1]["avg_iters_Z"] == row23["Avg_number_of_iterations_Z"])
+    for ln in lines:
+        lay = ln["layers_ms_per_chunk"]
+        print(f"{ln['config']}: {ln['shots']} shots, correct "
+              f"{ln['correct']} ({ln['check']['rule']}, "
+              f"{ln['check']['shots']} shots, shots decoded otherwise "
+              f"{ln['check'].get('differ')}; the timed run "
+              f"{ln['timed_check']}), decoders {ln['decoders']}; "
+              f"warm {ln['shots_per_s_warm']:.1f} shots/s; counters equal "
+              f"to phase {7 if ln['config'] == 'flagship' else 23}'s path: "
+              f"{same[ln['config']]}  [{ln['card']}]")
+        print("  ms a chunk: " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in lay.items())
+              + f"; launches a chunk {ln['launches_per_chunk']}; host "
+              f"syncs a chunk {ln['host_syncs_per_chunk']}; idle share "
+              f"{ln['idle_share']!r} ({ln['trace_kernels']} kernels, "
+              f"busy {ln['busy_ms_per_chunk']!r} of an untraced "
+              f"{ln['warm_ms_per_chunk']:.4f}-ms chunk, traced "
+              f"{ln['trace_ms_per_chunk']:.4f}); peak memory "
+              f"{ln['peak_mem_bytes']} bytes; decode bound share "
+              f"{ln['decode_bound_share']!r}; host {ln['host_cpu']}")
+        check(ln["correct"] is True, f"31: {ln['config']} is correct")
+        check(same[ln["config"]], f"31: {ln['config']}'s counters equal "
+              "the same shots through its phase's path")
+        check(ln["launches_per_chunk"].get("channel syndromes") == 1.0,
+              f"31: {ln['config']} ran kernel A once a chunk")
+    check(lines[0]["launches_per_chunk"].get("ms_qc MS", 0) > 0
+          and lines[1]["launches_per_chunk"].get("flood_qc BP", 0) > 0
+          and lines[1]["launches_per_chunk"].get("gf2_elim", 0) > 0,
+          "31: kernels B (flagship), F (BP) and C (config 5) launched")
+    print(f"phase 31: {time.perf_counter() - t_bench:.1f} s")
     t_mesh = time.perf_counter()
 
     # M1. the flagship on a 2-slot mesh of the one card: a host thread per

@@ -77,6 +77,7 @@ class Cascade(nn.Module):
         self.highp_guard = highp_guard and len(self.stages) > 2
         self.guard_fired = 0  # calls in which the high-p guard took over
         self.stage_lanes = [0] * len(self.stages)  # lanes decoded per stage
+        self.syncs = 0  # host syncs: one per refinement stage reached
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         B = syndromes.shape[0]
@@ -86,6 +87,7 @@ class Cascade(nn.Module):
         for level in range(1, len(self.stages)):
             order = tail_order(syndromes, conv)
             n_failed = int(order.numel())  # host sync: the window count
+            self.syncs += 1
             if n_failed == 0:
                 break
             W = window_size(B, self.stages[level][1])

@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from qldpcsim_torch.decoders.cascade import Cascade
-from qldpcsim_torch.engine.classify import classify_batch
 
 ENV = "QLDPC_GROUP_CASCADE"
 
@@ -98,8 +97,8 @@ class GroupCascade:
         res_x = self.head_x(sy_z, prior)
         res_z = self.head_z(sy_x, prior)
         strag = ~(res_x.converged & res_z.converged) & valid
-        counts = classify_batch(pipe.classifier, err_x, err_z, res_x.e_hat,
-                                res_z.e_hat, sy_z, sy_x, valid=valid & ~strag)
+        counts = pipe.classify(err_x, err_z, res_x.e_hat, res_z.e_hat, sy_z,
+                               sy_x, valid=valid & ~strag)
         # a straggler's converged side is final: its iterations count here,
         # the finish adds only the sides it decodes
         zero = torch.zeros((), dtype=res_x.n_iter.dtype, device=pipe.device)
@@ -171,9 +170,8 @@ class GroupCascade:
         sy_x = rec["sy_x"].to(torch.float32)
         ex, it_x = self._tail("x", rec["ex"], sy_z, ~rec["cx"], prior)
         ez, it_z = self._tail("z", rec["ez"], sy_x, ~rec["cz"], prior)
-        counts = classify_batch(pipe.classifier, rec["err_x"], rec["err_z"],
-                                ex, ez, sy_z, sy_x,
-                                valid=torch.ones_like(rec["cx"]))
+        counts = pipe.classify(rec["err_x"], rec["err_z"], ex, ez, sy_z, sy_x,
+                               valid=torch.ones_like(rec["cx"]))
         counts["nIterAccX"] = it_x
         counts["nIterAccZ"] = it_z
         return counts

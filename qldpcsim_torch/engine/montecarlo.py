@@ -335,6 +335,13 @@ class ShotPipeline(nn.Module):
         return ((word_x ^ fx).to(err_x.dtype), (word_z ^ fz).to(err_z.dtype),
                 sy_z, sy_x)
 
+    def classify(self, err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, valid
+                 ) -> Dict[str, torch.Tensor]:
+        """`classify_batch` with this pipeline's classifier: the one call
+        every chunk, finish and group pass makes."""
+        return classify_batch(self.classifier, err_x, err_z, ex_hat, ez_hat,
+                              sy_z, sy_x, valid=valid)
+
     def _chunk_body(self, tile_keys: torch.Tensor, p, n_valid: int
                     ) -> Dict[str, torch.Tensor]:
         """One chunk: sample, decode both sides [+ OSD], classify -> 0-d
@@ -401,9 +408,8 @@ class ShotPipeline(nn.Module):
         when there are none). The `torch.nonzero` that compacts them is the
         chunk's one host sync for OSD."""
         failed = ~(res_x.converged & res_z.converged) & valid
-        counts = classify_batch(self.classifier, err_x, err_z, res_x.e_hat,
-                                res_z.e_hat, sy_z, sy_x,
-                                valid=valid & ~failed)
+        counts = self.classify(err_x, err_z, res_x.e_hat, res_z.e_hat, sy_z,
+                               sy_x, valid=valid & ~failed)
         # OSD never touches n_iter: counted here for all valid shots
         self._count_iterations(counts, res_x.n_iter, res_z.n_iter, valid)
         idx = torch.nonzero(failed).flatten()
@@ -430,9 +436,9 @@ class ShotPipeline(nn.Module):
                              ~rec["cx"])
         ez = self._apply_osd(self.osd_z, rec["ez"], rec["pz"], rec["sy_x"],
                              ~rec["cz"])
-        counts = classify_batch(self.classifier, rec["err_x"], rec["err_z"],
-                                ex, ez, rec["sy_z"], rec["sy_x"],
-                                valid=torch.ones_like(rec["cx"]))
+        counts = self.classify(rec["err_x"], rec["err_z"], ex, ez,
+                               rec["sy_z"], rec["sy_x"],
+                               valid=torch.ones_like(rec["cx"]))
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         counts["nIterAccX"] = counts["nIterAccZ"] = zero
         return counts
@@ -474,8 +480,8 @@ class ShotPipeline(nn.Module):
 
     def _count(self, err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, it_x, it_z,
                valid) -> Dict[str, torch.Tensor]:
-        counts = classify_batch(self.classifier, err_x, err_z, ex_hat, ez_hat,
-                                sy_z, sy_x, valid=valid)
+        counts = self.classify(err_x, err_z, ex_hat, ez_hat, sy_z, sy_x,
+                               valid=valid)
         self._count_iterations(counts, it_x, it_z, valid)
         return counts
 

@@ -53,9 +53,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_once(n: int, argv: Sequence[str], errs: List) -> int:
-    """One launch of n ranks; their standard error goes to `errs`' files.
-    Returns 0, or the status of the first rank that failed."""
+def _run_once(n: int, argv: Sequence[str], errs: List,
+              prog: Sequence[str]) -> int:
+    """One launch of n ranks of `python PROG ARGV`; their standard error
+    goes to `errs`' files. Returns 0, or the status of the first rank that
+    failed."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(
         qldpcsim_torch.__file__)))
     path = os.environ.get("PYTHONPATH")
@@ -69,7 +71,7 @@ def _run_once(n: int, argv: Sequence[str], errs: List) -> int:
         for rank in range(n):
             env = dict(base, RANK=str(rank), LOCAL_RANK=str(rank))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "qldpcsim_torch", *argv], env=env,
+                [sys.executable, *prog, *argv], env=env,
                 stdout=None if rank == 0 else subprocess.DEVNULL,
                 stderr=errs[rank]))
         while True:
@@ -88,9 +90,11 @@ def _run_once(n: int, argv: Sequence[str], errs: List) -> int:
             p.wait()
 
 
-def launch_local(n: int, argv: Sequence[str]) -> int:
-    """Run `python -m qldpcsim_torch ARGV` as n ranks of one process group
-    on this host, rank r on card r. Returns 0 when every rank exits 0, else
+def launch_local(n: int, argv: Sequence[str],
+                 prog: Sequence[str] = ("-m", "qldpcsim_torch")) -> int:
+    """Run `python PROG ARGV` (the command line by default; `prog=(script,)`
+    runs a script) as n ranks of one process group on this host, rank r on
+    card r. Returns 0 when every rank exits 0, else
     the status of the first rank that failed (its peers are killed then).
     A port taken between its probe and rank 0's bind is retried once on
     another port."""
@@ -101,7 +105,7 @@ def launch_local(n: int, argv: Sequence[str]) -> int:
             errs = [open(os.path.join(tmp, f"err.{r}"), "w+")
                     for r in range(n)]
             try:
-                rc = _run_once(n, argv, errs)
+                rc = _run_once(n, argv, errs, prog)
                 texts = []
                 for f in errs:
                     f.seek(0)

@@ -38,12 +38,15 @@ class ThroughputMeter:
 
 
 @contextlib.contextmanager
-def trace_context(name: str, trace_dir: Optional[str] = None):
+def trace_context(name: str, trace_dir: Optional[str] = None,
+                  device_only: bool = False):
     """`torch.profiler` trace scope: records CPU activity, and CUDA activity
     when torch sees a card, under the range `name`, and writes
     `<trace_dir>/<name>.trace.json` (Chrome trace format; open it in
-    Perfetto or chrome://tracing). Yields the profiler; a no-op yielding
-    None when trace_dir is None."""
+    Perfetto or chrome://tracing). With `device_only` it records the card's
+    activity alone (kernels and copies: the host's operators are not
+    recorded, which keeps the trace's own cost small). Yields the profiler;
+    a no-op yielding None when trace_dir is None."""
     if trace_dir is None:
         yield None
         return
@@ -51,7 +54,7 @@ def trace_context(name: str, trace_dir: Optional[str] = None):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     os.makedirs(trace_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
+    activities = [] if device_only else [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:

@@ -1,7 +1,7 @@
 """The PyTorch port imports no jax and nothing of the JAX package
 `qldpcsim_tpu`: neither at import time (checked in a fresh interpreter,
-since the test process has both loaded) nor anywhere in its source (an AST
-scan)."""
+since the test process has both loaded) nor anywhere in its source or in
+the scripts that drive it (an AST scan)."""
 
 import ast
 import os
@@ -49,6 +49,8 @@ print(",".join(bad))
     "import qldpcsim_torch.parallel.launch",
     "import qldpcsim_torch.engine.group_cascade, qldpcsim_torch.gf2.native; "
     "from qldpcsim_torch import gf2; gf2.rank([[1, 1], [0, 1]])",
+    "import qldpcsim_torch.utils.bench; import runpy; "
+    "runpy.run_path('bench_torch.py', run_name='bench_torch')",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -72,7 +74,8 @@ def _imported_modules(path: Path):
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "chip_mesh.py",
-                                         ROOT / "chip_compare.py"]
+                                         ROOT / "chip_compare.py",
+                                         ROOT / "bench_torch.py"]
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"qldpcsim_torch/cli.py", "qldpcsim_torch/__main__.py",
@@ -83,7 +86,8 @@ def test_no_jax_import_in_source():
             "qldpcsim_torch/parallel/launch.py",
             "qldpcsim_torch/codes/export_data.py",
             "qldpcsim_torch/engine/group_cascade.py",
-            "qldpcsim_torch/gf2/native.py"} <= names
+            "qldpcsim_torch/gf2/native.py",
+            "qldpcsim_torch/utils/bench.py", "bench_torch.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
         for mod in _imported_modules(f):

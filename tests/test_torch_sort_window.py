@@ -6,12 +6,24 @@ nothing. The counters equal the default run's and the JAX package's run
 with the same window, with and without OSD and with a partial last
 chunk."""
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from qldpcsim_tpu.channel.depolarizing import sample_shot_tiles
 from qldpcsim_tpu.codes import get_code
+from qldpcsim_tpu.decoders import DecoderConfig as RefConfig
+from qldpcsim_tpu.decoders import TannerGraph as RefGraph
+from qldpcsim_tpu.decoders import build_layers as ref_build_layers
+from qldpcsim_tpu.decoders.cascade import make_cascade
+from qldpcsim_tpu.engine.classify import ClassifierStatic, classify_batch
 from qldpcsim_tpu.engine.montecarlo import SimConfig as RefSimConfig
 from qldpcsim_tpu.engine.montecarlo import simulate_p as ref_simulate_p
+from qldpcsim_tpu.ops.ms_qc_pallas import make_ms_qc_decoder
+from qldpcsim_tpu.ops.qc import detect_qc
+from qldpcsim_tpu.parallel.mesh import chunk_keys
 
 from qldpcsim_torch.engine.montecarlo import SimConfig, simulate_p
 
@@ -49,8 +61,13 @@ def test_sort_window_leaves_every_counter(monkeypatch, lp04, p, base):
     a partial last chunk and BP-16 + OSD-1, with sort_window 256 and 0.
     For MS-50 the event counters also equal the JAX package's run with
     sort_window 256. Its iteration sums are held to 2 iterations: on the
-    CPU the two packages' min-sum associate float32 sums differently, and
-    at this seed the Z sums differ by 2 of about 6500 with any window."""
+    CPU the JAX package's `simulate_p` does not take its QC kernel
+    (`_pallas_platform_ok` is false there, so `make_decoder` routes the
+    code to the incidence decoder `ms_mxu`), while the port follows the
+    Pallas kernel's association of the float32 sums on every device; at
+    this seed the Z sums differ by 2 of about 6500 with any window. The
+    port equals the QC kernel's own chain bit for bit, iteration sums
+    included (`test_ms_f50_equals_the_qc_kernel_chain`)."""
     monkeypatch.delenv("QLDPC_SORT_WINDOW", raising=False)
     r_256 = simulate_p(lp04.Hx, lp04.Hz, p,
                        SimConfig(sort_window=256, device="cpu", **base))
@@ -64,6 +81,62 @@ def test_sort_window_leaves_every_counter(monkeypatch, lp04, p, base):
         for a, b in ((r_256.avg_iterations_x, ref.avg_iterations_x),
                      (r_256.avg_iterations_z, ref.avg_iterations_z)):
             assert abs(a - b) * base["shots"] <= 2.0 + 1e-6
+
+
+def _flooding_cascade(H, max_iter):
+    """make_cascade(make_ms_qc_decoder), flooding, Pallas in interpret mode:
+    the QC kernel the JAX package takes on the TPU."""
+    cfg = RefConfig(dec_type="MS", max_iter=max_iter, schedule="F")
+    st = detect_qc(H)
+
+    def factory(graph, c, layers=None):
+        return make_ms_qc_decoder(st, c, layers=layers, B_blk=32,
+                                  interpret=True)
+
+    return make_cascade(factory, RefGraph.build(H), cfg,
+                        ref_build_layers(H, "F"))
+
+
+def test_ms_f50_equals_the_qc_kernel_chain(monkeypatch, lp04):
+    """The MS-50 run above (flooding, p 0.05, seed 21, 1500 shots in
+    512-shot chunks, the last partial) against the JAX package's chunk body
+    put together with its QC kernel in interpret mode (chunk_keys ->
+    sample_shot_tiles -> the cascade of make_ms_qc_decoder ->
+    classify_batch): every counter equal, the iteration sums included."""
+    monkeypatch.delenv("QLDPC_QC_STACKED", raising=False)
+    p, shots, batch, seed = 0.05, MS50["shots"], MS50["batch_size"], 21
+    Hx, Hz = np.asarray(lp04.Hx) % 2, np.asarray(lp04.Hz) % 2
+    n = Hx.shape[1]
+    dec_x, dec_z = _flooding_cascade(Hz, 50), _flooding_cascade(Hx, 50)
+    classifier = ClassifierStatic.build(Hx, Hz)
+    Hx_T, Hz_T = Hx.T.astype(np.float32), Hz.T.astype(np.float32)
+
+    @jax.jit
+    def chunk(keys, p, n_valid):
+        err_x, err_z, sy_z, sy_x = sample_shot_tiles(keys, p, n, 64, Hx_T,
+                                                     Hz_T)
+        valid = jnp.arange(batch) < n_valid
+        rx, rz = dec_x(sy_z, p / 3.0), dec_z(sy_x, p / 3.0)
+        counts = classify_batch(classifier, err_x, err_z, rx.e_hat, rz.e_hat,
+                                sy_z, sy_x, valid=valid)
+        counts["nIterAccX"] = jnp.sum(jnp.where(valid, rx.n_iter, 0))
+        counts["nIterAccZ"] = jnp.sum(jnp.where(valid, rz.n_iter, 0))
+        return counts
+
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0)
+    tpc = batch // 64
+    ref = {}
+    for c in range(-(-shots // batch)):
+        counts = jax.device_get(chunk(
+            chunk_keys(key, c * tpc, tpc), jnp.float32(p),
+            jnp.int32(min(batch, shots - c * batch))))
+        for k, v in counts.items():
+            ref[k] = ref.get(k, 0) + int(v)
+    r = simulate_p(lp04.Hx, lp04.Hz, p, SimConfig(device="cpu", **MS50))
+    port = dict(r.counters, nIterAccX=round(r.avg_iterations_x * shots),
+                nIterAccZ=round(r.avg_iterations_z * shots))
+    assert port == ref
+    assert ref["DecFailures_X"] + ref["DecFailures_Z"] > 0
 
 
 @pytest.fixture(scope="module")
