@@ -205,7 +205,20 @@ Phases (any failure raises and exits non-zero):
      the CPU), and its counters and iterations equal those of the same
      shots through phase 7's pipeline and through phase 23's command line
      (kernel F opted in); warm shots/s, the chunk's spans, launches, host
-     syncs, idle share and peak memory printed;
+     syncs, idle share and peak memory printed; then `bench_torch.py`'s
+     layer pass on pipelines built with QLDPC_GROUP_CASCADE=1, the flagship
+     and config 4 at p = 0.1 (every chunk overflows), 32,768 shots each:
+     decode X, decode Z (the head and tail decoders) and the group finish
+     above zero, and the residual smaller than with the spans on the
+     pipeline's own cascades, which read zero there;
+ 32. the parity harness, `parity_torch.py`, in this process: first a
+     control that must fail (row 5b_lp118_ms_osd2 with the engine's X
+     estimates zeroed), then the ten rows of BASELINE configs 1-5 with
+     every launch count at 0 just before, the engine (`simulate_p` on the
+     card) at 16,384 shots a row, the oracle on the host (the native C++
+     core for MS and BP with OSD, numpy for BF and NG) at a fifth of its
+     shots; every row within 4 sigma, each row's seconds on both sides,
+     and kernels A, B (MS and BP), C and D (MS) launched by the rows;
  M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
      per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
      A launched once per chunk and slot, warm shots/s beside phase 7's and a
@@ -313,8 +326,15 @@ SLEEP_CYCLES = 20_000_000
 # the timed runs: enough shots for a warm window of a second or more
 TIMED_SHOTS = 256 * BATCH          # the flagship and config 5
 C4_TIMED_SHOTS = [256 * BATCH, 128 * BATCH, 64 * BATCH, 32 * BATCH]  # per p
-# phase 31: bench_torch.py's shots per configuration
+# phase 31: bench_torch.py's shots per configuration, and the shots of the
+# layer passes under the group cascade
 BENCH_SHOTS = 64 * BATCH
+GC_SPAN_SHOTS = 8 * BATCH
+# phase 32: parity_torch.py's rows at reduced counts (engine shots, the
+# factor on the oracle's)
+PARITY_ENGINE_SHOTS = 4 * BATCH
+PARITY_SCALE = 0.2
+PARITY_CONTROL = "5b_lp118_ms_osd2"
 # M2: the seconds a rank may take before the phase fails
 RANK_TIMEOUT_S = 240
 # M2d: two ranks time the counter all-reduce (9 counters, and 2 p-rows)
@@ -2836,7 +2856,117 @@ def main():
           and lines[1]["launches_per_chunk"].get("flood_qc BP", 0) > 0
           and lines[1]["launches_per_chunk"].get("gf2_elim", 0) > 0,
           "31: kernels B (flagship), F (BP) and C (config 5) launched")
+
+    # the layer pass under the group cascade: its heads, tails and finish
+    # spanned, beside the spans of the pipeline's own cascades, which the
+    # group cascade never calls (everything lands in the residual there)
+    from qldpcsim_torch.utils import bench as bench_mod
+
+    class CascadeSpans(bench_mod._Spans):
+        def targets(self):
+            pipe_ = self.pipe
+            return ([(pipe_, a, nm) for a, nm in self.WRAPPED]
+                    + [(pipe_.dec_x, "forward", "decode_x"),
+                       (pipe_.dec_z, "forward", "decode_z")])
+
+    def layer_pass(b, p_, i, spans_cls):
+        real = bench_mod._Spans
+        bench_mod._Spans = spans_cls
+        try:
+            return b._layer_pass(p_, i, GC_SPAN_SHOTS)[0]
+        finally:
+            bench_mod._Spans = real
+
+    for cname, i in (("flagship", 0), ("config4", 1)):
+        case = next(c for c in bench_mod.CASES if c.config == cname)
+        with bench_mod.environ(((group_cascade.ENV, "1"),)):
+            b = bench_mod.Bench(case, case.ps, [GC_SPAN_SHOTS] * len(case.ps),
+                                SEED, "cuda", 1, None)
+        gc = b.pipe.group_cascade
+        check(gc is not None, f"31: {cname} built under the group cascade")
+        p_ = case.ps[i]
+        b._run(p_, i, b.pipe.batch)      # a warm chunk first
+        over0 = gc.gc_overflows
+        lay = layer_pass(b, p_, i, bench_mod._Spans)
+        over = gc.gc_overflows - over0
+        lay_c = layer_pass(b, p_, i, CascadeSpans)
+        for label, ly in (("spans of the heads, tails and finish", lay),
+                          ("spans of the pipeline's own cascades", lay_c)):
+            print(f"  {cname} p={p_}, group cascade, layer pass over "
+                  f"{GC_SPAN_SHOTS} shots, {label} (ms a chunk): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ly.items())
+                  + f"  [{smi}]")
+        print(f"  {cname}: chunks overflowed in the first pass {over} of "
+              f"{GC_SPAN_SHOTS // b.pipe.batch}")
+        check(lay["decode_x"] > 0 and lay["decode_z"] > 0
+              and lay["finish"] > 0, f"31: {cname} under the group cascade: "
+              "decode_x, decode_z and finish above zero")
+        check(lay_c["decode_x"] == lay_c["decode_z"] == lay_c["finish"] == 0,
+              f"31: {cname}: the pipeline's own cascades never decode under "
+              "the group cascade")
+        check(lay["residual"] < lay_c["residual"],
+              f"31: {cname}: the residual smaller with the group cascade's "
+              "spans")
     print(f"phase 31: {time.perf_counter() - t_bench:.1f} s")
+
+    # 32. parity_torch.py: the card's qBLER against the reference-semantics
+    # oracle on the host, every row at reduced counts, after a control that
+    # must fail
+    phase("32 parity_torch.py (BASELINE configs 1-5 against the oracle)")
+    t_par = time.perf_counter()
+    from qldpcsim_torch.utils import parity
+
+    def parity_row(row):
+        return parity.run_one(
+            row.name, row.code, row.p, PARITY_ENGINE_SHOTS,
+            max(64, int(row.shots_ref * PARITY_SCALE)), row.dec_type,
+            row.iters, row.schedule, osd_order=row.osd_order,
+            bf_residual=row.bf_residual, device="cuda")
+
+    real_pipeline = parity.ShotPipeline
+
+    def corrupted_pipeline(*a, **k):
+        """A pipeline whose X decodes come back as all zeros."""
+        pipe_ = real_pipeline(*a, **k)
+        forward = pipe_.dec_x.forward
+
+        def zeroed(*fa, **fk):
+            r_ = forward(*fa, **fk)
+            return dataclasses.replace(r_, e_hat=torch.zeros_like(r_.e_hat))
+
+        pipe_.dec_x.forward = zeroed
+        return pipe_
+
+    parity.ShotPipeline = corrupted_pipeline
+    try:
+        control = parity_row(next(r for r in parity.ROWS
+                                  if r.name == PARITY_CONTROL))
+    finally:
+        parity.ShotPipeline = real_pipeline
+    print(f"control, X estimates zeroed: {json.dumps(control)}")
+    check(control["pass"] is False,
+          f"32: the control ({PARITY_CONTROL}, X estimates zeroed) fails")
+    reset_launches()
+    par_rows = []
+    for row in parity.ROWS:
+        line = parity_row(row)
+        print(json.dumps(line))
+        print(f"  {row.name}: engine {line['seconds_engine']:.2f} s, "
+              f"oracle {line['seconds_oracle']:.2f} s (host)")
+        par_rows.append(line)
+    la_par = read_launches()
+    print(f"launches of the ten rows: {la_par}")
+    check_fused(la_par, "32 parity rows")
+    for line in par_rows:
+        check(line["pass"] is True and line["card"] == smi,
+              f"32: {line['config']} within {parity.Z} sigma of the oracle")
+    check(all(la_par[k] > 0 for k in ("ms_qc MS", "ms_qc BP", "gf2_elim",
+                                      "seq_qc MS")),
+          "32: kernels B (MS, BP), C and D (MS) launched by the rows")
+    print(f"# parity: {len(par_rows)}/{len(par_rows)} within {parity.Z}-"
+          f"sigma; max bound {max(r['bound'] for r in par_rows):.4f}  "
+          f"[{smi}]")
+    print(f"phase 32: {time.perf_counter() - t_par:.1f} s")
     t_mesh = time.perf_counter()
 
     # M1. the flagship on a 2-slot mesh of the one card: a host thread per

@@ -16,9 +16,12 @@ wrappers and the profiler stay out of the timed window:
   2. the layer pass: `simulate_p` over up to `LAYER_CHUNKS` chunks (as
      many as last about `LAYER_MS` at the timed run's rate) with CUDA
      events around the pipeline's channel, each side's decode, OSD and
-     classify (wrappers on the pipeline's own methods); the residual is the
-     pass's time outside every span (the card idle between launches while
-     the host works). Host syncs are the pipeline's own counts: one per
+     classify (wrappers on the pipeline's own methods; under
+     `QLDPC_GROUP_CASCADE=1` a side's decode is its head and tail decoders,
+     and the group cascade's `finish` is a span of its own, less the
+     decodes, OSD and classify inside it); the residual is the pass's time
+     outside every span (the card idle between launches while the host
+     works). Host syncs are the pipeline's own counts: one per
      cascade stage reached and side (`Cascade.syncs`, `GroupCascade.
      syncs`), one per OSD compaction (`ShotPipeline.osd_syncs`);
   3. the trace pass: `simulate_p` over up to `TRACE_CHUNKS` chunks
@@ -111,7 +114,7 @@ PEAK_OPS_S = 67e12
 OPS_PER_EDGE_ITER = {"MS": 15, "BP": 71}
 OPS_DRAW = 84
 OPS_SYNDROME_EDGE = 3
-SPANS = ("channel", "decode_x", "decode_z", "osd", "classify")
+SPANS = ("channel", "decode_x", "decode_z", "osd", "classify", "finish")
 # Column permutation of the non-QC configuration (`chip_smoke.py` phase 17).
 PERM_SEED = 118
 
@@ -418,7 +421,9 @@ def host_syncs(pipe: ShotPipeline) -> Dict[str, int]:
 
 class _Spans:
     """CUDA-event spans around a pipeline's stages, installed on the
-    pipeline's own methods for the layer pass and removed after it."""
+    pipeline's own methods for the layer pass and removed after it. A span
+    is its own time: a span that runs inside another (the group finish's
+    tail decodes, OSD and classify) counts in its own name alone."""
 
     WRAPPED = (("_sample_chunk", "channel"), ("classify", "classify"),
                ("_apply_osd", "osd"))
@@ -426,29 +431,51 @@ class _Spans:
     def __init__(self, pipe, on_card: bool):
         self.pipe = pipe
         self.on_card = on_card
+        # per span, (start, end, the spans that ran inside it)
         self.events = {name: [] for name in SPANS}
+        self._open: List[list] = []
+
+    def targets(self) -> List[Tuple[object, str, str]]:
+        """(object, method, span) of every method the layer pass wraps:
+        each side's decoders (under the group cascade its head and tail)
+        and, under the group cascade, its finish."""
+        pipe = self.pipe
+        out = [(pipe, attr, name) for attr, name in self.WRAPPED]
+        gc = pipe.group_cascade
+        if gc is None:
+            return out + [(pipe.dec_x, "forward", "decode_x"),
+                          (pipe.dec_z, "forward", "decode_z")]
+        return out + [(gc.head_x, "forward", "decode_x"),
+                      (gc.tail_x, "forward", "decode_x"),
+                      (gc.head_z, "forward", "decode_z"),
+                      (gc.tail_z, "forward", "decode_z"),
+                      (gc, "finish", "finish")]
 
     def _timed(self, name, fn):
         def wrapper(*args, **kwargs):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            inner = []
             e0.record()
-            out = fn(*args, **kwargs)
+            self._open.append(inner)
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self._open.pop()
             e1.record()
-            self.events[name].append((e0, e1))
+            self.events[name].append((e0, e1, inner))
+            if self._open:
+                self._open[-1].append((e0, e1))
             return out
 
         return wrapper
 
     @contextlib.contextmanager
     def installed(self):
-        pipe = self.pipe
         if not self.on_card:
             yield self
             return
-        targets = [(pipe, attr, name) for attr, name in self.WRAPPED]
-        targets += [(pipe.dec_x, "forward", "decode_x"),
-                    (pipe.dec_z, "forward", "decode_z")]
+        targets = self.targets()
         for obj, attr, name in targets:
             setattr(obj, attr, self._timed(name, getattr(obj, attr)))
         try:
@@ -458,7 +485,10 @@ class _Spans:
                 del obj.__dict__[attr]
 
     def ms(self, name) -> float:
-        return sum(e0.elapsed_time(e1) for e0, e1 in self.events[name])
+        """The span's ms, less those of the spans inside it."""
+        return sum(e0.elapsed_time(e1)
+                   - sum(i0.elapsed_time(i1) for i0, i1 in inner)
+                   for e0, e1, inner in self.events[name])
 
 
 class Bench:

@@ -1,7 +1,8 @@
-"""The PyTorch port imports no jax and nothing of the JAX package
-`qldpcsim_tpu`: neither at import time (checked in a fresh interpreter,
-since the test process has both loaded) nor anywhere in its source or in
-the scripts that drive it (an AST scan)."""
+"""The PyTorch port imports no jax, nothing of the JAX package
+`qldpcsim_tpu` and none of the tests' helpers: neither at import time
+(checked in a fresh interpreter, since the test process has both loaded)
+nor anywhere in its source or in the scripts that drive it (an AST
+scan)."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ import sys
 import qldpcsim_torch
 {imports}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "qldpcsim_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "qldpcsim_tpu", "tests",
+                                    "oracle", "refimport"))
 print(",".join(bad))
 """
 
@@ -51,6 +53,8 @@ print(",".join(bad))
     "from qldpcsim_torch import gf2; gf2.rank([[1, 1], [0, 1]])",
     "import qldpcsim_torch.utils.bench; import runpy; "
     "runpy.run_path('bench_torch.py', run_name='bench_torch')",
+    "import qldpcsim_torch.utils.parity; import runpy; "
+    "runpy.run_path('parity_torch.py', run_name='parity_torch')",
 ])
 def test_import_leaves_jax_out(imports):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -75,7 +79,8 @@ def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "chip_mesh.py",
                                          ROOT / "chip_compare.py",
-                                         ROOT / "bench_torch.py"]
+                                         ROOT / "bench_torch.py",
+                                         ROOT / "parity_torch.py"]
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"qldpcsim_torch/cli.py", "qldpcsim_torch/__main__.py",
@@ -87,10 +92,14 @@ def test_no_jax_import_in_source():
             "qldpcsim_torch/codes/export_data.py",
             "qldpcsim_torch/engine/group_cascade.py",
             "qldpcsim_torch/gf2/native.py",
-            "qldpcsim_torch/utils/bench.py", "bench_torch.py"} <= names
+            "qldpcsim_torch/utils/bench.py", "bench_torch.py",
+            "qldpcsim_torch/utils/parity.py", "parity_torch.py"} <= names
     allowed_tpu = set()  # the port keeps its own copy of what it needs
     for f in files:
         for mod in _imported_modules(f):
             assert mod.split(".")[0] not in ("jax", "jaxlib"), f"{f}: {mod}"
             if mod.split(".")[0] == "qldpcsim_tpu":
                 assert mod in allowed_tpu, f"{f} imports {mod}"
+            # the test helpers (tests/oracle.py imports qldpcsim_tpu.gf2)
+            assert mod.split(".")[0] not in ("tests", "oracle",
+                                             "refimport"), f"{f}: {mod}"
