@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from qldpcsim_torch.decoders.common import DecodeResult
+from qldpcsim_torch.utils.profiling import span
 
 
 def default_stages(max_iter: int, batch_hint: int = 4096
@@ -81,30 +82,33 @@ class Cascade(nn.Module):
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         B = syndromes.shape[0]
-        r = self.decs[0](syndromes, p)
+        with span("qldpc.cascade.head"):
+            r = self.decs[0](syndromes, p)
         self.stage_lanes[0] += B
         e, it, conv, post = r.e_hat, r.n_iter, r.converged, r.posterior
         for level in range(1, len(self.stages)):
-            order = tail_order(syndromes, conv)
-            n_failed = int(order.numel())  # host sync: the window count
-            self.syncs += 1
-            if n_failed == 0:
-                break
-            W = window_size(B, self.stages[level][1])
-            heavy = (self.highp_guard and level == 1
-                     and n_failed > (2 * B) // 3)
-            dec = self.decs[-1] if heavy else self.decs[level]
-            self.stage_lanes[-1 if heavy else level] += n_failed
-            for lo in range(0, n_failed, W):
-                idx = order[lo:lo + W]
-                s = dec(syndromes[idx], p)
-                e[idx] = s.e_hat
-                it[idx] = s.n_iter
-                conv[idx] = s.converged
-                post[idx] = s.posterior
-            if heavy:  # the tail was decoded at full depth: nothing is left
-                self.guard_fired += 1
-                break
+            with span("qldpc.cascade.stage", level=level):
+                with span("qldpc.cascade.compact"):
+                    order = tail_order(syndromes, conv)
+                    n_failed = int(order.numel())  # host sync: window count
+                self.syncs += 1
+                if n_failed == 0:
+                    break
+                W = window_size(B, self.stages[level][1])
+                heavy = (self.highp_guard and level == 1
+                         and n_failed > (2 * B) // 3)
+                dec = self.decs[-1] if heavy else self.decs[level]
+                self.stage_lanes[-1 if heavy else level] += n_failed
+                for lo in range(0, n_failed, W):
+                    idx = order[lo:lo + W]
+                    s = dec(syndromes[idx], p)
+                    e[idx] = s.e_hat
+                    it[idx] = s.n_iter
+                    conv[idx] = s.converged
+                    post[idx] = s.posterior
+                if heavy:  # the tail was decoded at full depth: none is left
+                    self.guard_fired += 1
+                    break
         return DecodeResult(e_hat=e, n_iter=it, converged=conv,
                             posterior=post)
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from qldpcsim_torch.decoders.cascade import Cascade
+from qldpcsim_torch.utils.profiling import span
 
 ENV = "QLDPC_GROUP_CASCADE"
 
@@ -90,6 +91,12 @@ class GroupCascade:
         """One chunk: sample, both head decodes, classify the shots that
         converged on both sides, and count every final side's iterations.
         Returns (counters, the stragglers' records or None)."""
+        pipe = self.pipe
+        with span("qldpc.gcascade.chunk", p_index=pipe.chunk_at[0],
+                  chunk=pipe.chunk_at[1]):
+            return self._chunk(tile_keys, p, n_valid)
+
+    def _chunk(self, tile_keys: torch.Tensor, p, n_valid: int):
         pipe = self.pipe
         err_x, err_z, sy_z, sy_x = pipe._sample_chunk(tile_keys, p)
         valid = torch.arange(err_x.shape[0], device=pipe.device) < n_valid
@@ -163,18 +170,19 @@ class GroupCascade:
         side's head-unconverged records through the tail, the head estimate
         kept where that side converged, one classification of every record,
         and the iterations of the decoded sides."""
-        pipe = self.pipe
-        rec = {k: torch.cat([d[k] for d in pending]) for k in pending[0]}
-        prior = np.float32(p) / np.float32(3.0)
-        sy_z = rec["sy_z"].to(torch.float32)   # exact for 0/1
-        sy_x = rec["sy_x"].to(torch.float32)
-        ex, it_x = self._tail("x", rec["ex"], sy_z, ~rec["cx"], prior)
-        ez, it_z = self._tail("z", rec["ez"], sy_x, ~rec["cz"], prior)
-        counts = pipe.classify(rec["err_x"], rec["err_z"], ex, ez, sy_z, sy_x,
-                               valid=torch.ones_like(rec["cx"]))
-        counts["nIterAccX"] = it_x
-        counts["nIterAccZ"] = it_z
-        return counts
+        with span("qldpc.gcascade.finish"):
+            pipe = self.pipe
+            rec = {k: torch.cat([d[k] for d in pending]) for k in pending[0]}
+            prior = np.float32(p) / np.float32(3.0)
+            sy_z = rec["sy_z"].to(torch.float32)   # exact for 0/1
+            sy_x = rec["sy_x"].to(torch.float32)
+            ex, it_x = self._tail("x", rec["ex"], sy_z, ~rec["cx"], prior)
+            ez, it_z = self._tail("z", rec["ez"], sy_x, ~rec["cz"], prior)
+            counts = pipe.classify(rec["err_x"], rec["err_z"], ex, ez, sy_z,
+                                   sy_x, valid=torch.ones_like(rec["cx"]))
+            counts["nIterAccX"] = it_x
+            counts["nIterAccZ"] = it_z
+            return counts
 
     def multi_chunk_body(self, keys: torch.Tensor, p, n_valids,
                          pending_max: int) -> Dict[str, torch.Tensor]:
@@ -190,6 +198,7 @@ class GroupCascade:
         pending, n_pending = [], 0
         for k, nv in zip(keys, n_valids):
             counts, rec = self.chunk(k, p, int(nv))
+            self.pipe.chunk_at[1] += 1
             total = add(counts)
             if rec is not None:
                 pending.append(rec)

@@ -69,11 +69,13 @@ from qldpcsim_torch.ops.channel_cuda import SyndromeTables, sample_tiles
 from qldpcsim_torch.parallel.keys import chunk_keys
 from qldpcsim_torch.parallel.mesh import (
     Mesh,
+    local_mesh_rows,
     make_mesh,
     per_device_multi_chunk_fn,
     world,
 )
 from qldpcsim_torch.utils.checkpoint import CheckpointStore
+from qldpcsim_torch.utils.profiling import span
 from qldpcsim_torch.utils.threefry import fold_in, prng_key
 
 _COUNTER_KEYS = (
@@ -226,7 +228,11 @@ class ShotPipeline(nn.Module):
     With `cfg.mesh` the pipeline is the layout of a sharded run: a chunk of
     `batch` shots is `n_dev` slots of `per_dev` shots (`tiles_per_dev`
     tiles), the slots of `rows` p-rows share the mesh, and `slots` holds one
-    pipeline per local slot, on its device, with `batch = per_dev`."""
+    pipeline per local slot, on its device, with `batch = per_dev`.
+
+    `chunk_at` is [p_index, chunk] of the next chunk a body call runs, the
+    arguments of its `qldpc.chunk` span (`locate` sets it, the multi-chunk
+    bodies advance it)."""
 
     def __init__(self, Hx: np.ndarray, Hz: np.ndarray, cfg: SimConfig,
                  rows: int = 1):
@@ -255,6 +261,7 @@ class ShotPipeline(nn.Module):
         self.tiles_per_dev = self.per_dev // self.tile
         self.tiles_per_chunk = self.batch // self.tile
         self.group_cascade = None
+        self.chunk_at = [0, 0]
         if self.mesh is not None:
             if (self.mesh.world_size > 1
                     and any(d.type == "cuda" for d in self.mesh.devices)):
@@ -323,24 +330,37 @@ class ShotPipeline(nn.Module):
         encoder the syndromes come from the channel's own launch; with it
         the channel draws the errors alone, and the syndromes are formed
         once, from the corrupted words."""
-        if self.encoder is None:
-            return sample_shot_tiles(tile_keys, p, self.n, self.tile,
-                                     self.syn_tabs)
-        err_x, err_z = sample_tiles(tile_keys, p, self.n, self.tile)
-        fx, fz = self.encoder.encode(fold_in(tile_keys[0], _ENC_FOLD),
-                                     err_x.shape[0])
-        fx, fz = fx.bool(), fz.bool()
-        word_x, word_z = err_x.bool() ^ fx, err_z.bool() ^ fz
-        sy_z, sy_x = syndromes_of(word_x, word_z, self.Hx_T, self.Hz_T)
-        return ((word_x ^ fx).to(err_x.dtype), (word_z ^ fz).to(err_z.dtype),
-                sy_z, sy_x)
+        with span("qldpc.channel"):
+            if self.encoder is None:
+                return sample_shot_tiles(tile_keys, p, self.n, self.tile,
+                                         self.syn_tabs)
+            err_x, err_z = sample_tiles(tile_keys, p, self.n, self.tile)
+            fx, fz = self.encoder.encode(fold_in(tile_keys[0], _ENC_FOLD),
+                                         err_x.shape[0])
+            fx, fz = fx.bool(), fz.bool()
+            word_x, word_z = err_x.bool() ^ fx, err_z.bool() ^ fz
+            sy_z, sy_x = syndromes_of(word_x, word_z, self.Hx_T, self.Hz_T)
+            return ((word_x ^ fx).to(err_x.dtype),
+                    (word_z ^ fz).to(err_z.dtype), sy_z, sy_x)
 
     def classify(self, err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, valid
                  ) -> Dict[str, torch.Tensor]:
         """`classify_batch` with this pipeline's classifier: the one call
         every chunk, finish and group pass makes."""
-        return classify_batch(self.classifier, err_x, err_z, ex_hat, ez_hat,
-                              sy_z, sy_x, valid=valid)
+        with span("qldpc.classify"):
+            return classify_batch(self.classifier, err_x, err_z, ex_hat,
+                                  ez_hat, sy_z, sy_x, valid=valid)
+
+    def locate(self, p_indices: Sequence[int], chunk: int) -> None:
+        """The next body call's first chunk is chunk `chunk` of the job on
+        key branch `p_indices[r]` for p-row r (each local slot of a mesh by
+        its row): the arguments of the chunks' spans."""
+        if self.slots is None:
+            self.chunk_at = [int(p_indices[0]), chunk]
+            return
+        per_row = self.mesh.size // len(p_indices)
+        for (s, _), slot in zip(local_mesh_rows(self.mesh), self.slots):
+            slot.chunk_at = [int(p_indices[s // per_row]), chunk]
 
     def _chunk_body(self, tile_keys: torch.Tensor, p, n_valid: int
                     ) -> Dict[str, torch.Tensor]:
@@ -348,18 +368,24 @@ class ShotPipeline(nn.Module):
         counters. tile_keys: (tiles_per_chunk, 2) int64, one key per global
         tile. Self-contained (OSD finishes its failures in the chunk); the
         key groups of `_multi_chunk_body` use `_chunk_body_defer`."""
-        err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
-        valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
-        ex_hat, ez_hat, it_x, it_z = self._decode(sy_z, sy_x, p, valid)
-        return self._count(err_x, err_z, ex_hat, ez_hat, sy_z, sy_x, it_x,
-                           it_z, valid)
+        with span("qldpc.chunk", p_index=self.chunk_at[0],
+                  chunk=self.chunk_at[1]):
+            err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
+            valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
+            ex_hat, ez_hat, it_x, it_z = self._decode(sy_z, sy_x, p, valid)
+            return self._count(err_x, err_z, ex_hat, ez_hat, sy_z, sy_x,
+                               it_x, it_z, valid)
 
     def _decode_sides(self, sy_z, sy_x, p):
         """The X and Z decodes of a chunk -> (DecodeResult, DecodeResult)."""
         # the reference's prior p/3 (float32, as the reference's jitted
         # `p / 3.0` on a float32 p)
         prior = np.float32(p) / np.float32(3.0)
-        return self.dec_x(sy_z, prior), self.dec_z(sy_x, prior)
+        with span("qldpc.decode.x"):
+            res_x = self.dec_x(sy_z, prior)
+        with span("qldpc.decode.z"):
+            res_z = self.dec_z(sy_x, prior)
+        return res_x, res_z
 
     def _decode(self, sy_z, sy_x, p, valid):
         """Both sides' decodes, then OSD over each side's decoder-failed
@@ -380,26 +406,30 @@ class ShotPipeline(nn.Module):
         the result, and the counters equal the reference's in-chunk and
         deferred paths alike. `torch.nonzero` costs one host sync per call:
         the window count."""
-        order = torch.nonzero(failed).flatten()
-        self.osd_syncs += 1
-        n_failed = int(order.numel())
-        self.osd_shots["x" if osd is self.osd_x else "z"] += n_failed
-        if n_failed == 0:
-            return e_hat
-        cap = min(e_hat.shape[0], _OSD_WINDOW)
-        out = e_hat.clone()
-        for lo in range(0, n_failed, cap):
-            idx = order[lo:lo + cap]
-            out[idx] = osd(e_hat[idx], syn[idx], post[idx])
-        return out
+        with span("qldpc.osd"):
+            with span("qldpc.osd.compact"):
+                order = torch.nonzero(failed).flatten()
+                n_failed = int(order.numel())
+            self.osd_syncs += 1
+            self.osd_shots["x" if osd is self.osd_x else "z"] += n_failed
+            if n_failed == 0:
+                return e_hat
+            cap = min(e_hat.shape[0], _OSD_WINDOW)
+            out = e_hat.clone()
+            for lo in range(0, n_failed, cap):
+                idx = order[lo:lo + cap]
+                out[idx] = osd(e_hat[idx], syn[idx], post[idx])
+            return out
 
     def _chunk_body_defer(self, tile_keys: torch.Tensor, p, n_valid: int):
         """Chunk body of a key group with OSD: sample, decode, then
         `_defer`."""
-        err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
-        valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
-        res_x, res_z = self._decode_sides(sy_z, sy_x, p)
-        return self._defer(err_x, err_z, sy_z, sy_x, res_x, res_z, valid)
+        with span("qldpc.chunk", p_index=self.chunk_at[0],
+                  chunk=self.chunk_at[1]):
+            err_x, err_z, sy_z, sy_x = self._sample_chunk(tile_keys, p)
+            valid = torch.arange(err_x.shape[0], device=self.device) < n_valid
+            res_x, res_z = self._decode_sides(sy_z, sy_x, p)
+            return self._defer(err_x, err_z, sy_z, sy_x, res_x, res_z, valid)
 
     def _defer(self, err_x, err_z, sy_z, sy_x, res_x, res_z, valid):
         """Count the shots that need no OSD (both sides converged) and the
@@ -407,21 +437,22 @@ class ShotPipeline(nn.Module):
         records of the decoder-failed shots for the group-level pass (None
         when there are none). The `torch.nonzero` that compacts them is the
         chunk's one host sync for OSD."""
-        failed = ~(res_x.converged & res_z.converged) & valid
-        counts = self.classify(err_x, err_z, res_x.e_hat, res_z.e_hat, sy_z,
-                               sy_x, valid=valid & ~failed)
-        # OSD never touches n_iter: counted here for all valid shots
-        self._count_iterations(counts, res_x.n_iter, res_z.n_iter, valid)
-        idx = torch.nonzero(failed).flatten()
-        self.osd_syncs += 1
-        if idx.numel() == 0:
-            return counts, None
-        return counts, {
-            "err_x": err_x[idx], "err_z": err_z[idx],
-            "sy_z": sy_z[idx], "sy_x": sy_x[idx],
-            "ex": res_x.e_hat[idx], "ez": res_z.e_hat[idx],
-            "px": res_x.posterior[idx], "pz": res_z.posterior[idx],
-            "cx": res_x.converged[idx], "cz": res_z.converged[idx]}
+        with span("qldpc.osd.defer"):
+            failed = ~(res_x.converged & res_z.converged) & valid
+            counts = self.classify(err_x, err_z, res_x.e_hat, res_z.e_hat,
+                                   sy_z, sy_x, valid=valid & ~failed)
+            # OSD never touches n_iter: counted here for all valid shots
+            self._count_iterations(counts, res_x.n_iter, res_z.n_iter, valid)
+            idx = torch.nonzero(failed).flatten()
+            self.osd_syncs += 1
+            if idx.numel() == 0:
+                return counts, None
+            return counts, {
+                "err_x": err_x[idx], "err_z": err_z[idx],
+                "sy_z": sy_z[idx], "sy_x": sy_x[idx],
+                "ex": res_x.e_hat[idx], "ez": res_z.e_hat[idx],
+                "px": res_x.posterior[idx], "pz": res_z.posterior[idx],
+                "cx": res_x.converged[idx], "cz": res_z.converged[idx]}
 
     def _osd_group_finish(self, pending: List[Dict[str, torch.Tensor]]
                           ) -> Dict[str, torch.Tensor]:
@@ -430,18 +461,19 @@ class ShotPipeline(nn.Module):
         through OSD in full windows, then one classification. Returns the
         event counters of these shots; their iterations were counted in
         their chunks."""
-        rec = {name: torch.cat([d[name] for d in pending]) for name in
-               pending[0]}
-        ex = self._apply_osd(self.osd_x, rec["ex"], rec["px"], rec["sy_z"],
-                             ~rec["cx"])
-        ez = self._apply_osd(self.osd_z, rec["ez"], rec["pz"], rec["sy_x"],
-                             ~rec["cz"])
-        counts = self.classify(rec["err_x"], rec["err_z"], ex, ez,
-                               rec["sy_z"], rec["sy_x"],
-                               valid=torch.ones_like(rec["cx"]))
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        counts["nIterAccX"] = counts["nIterAccZ"] = zero
-        return counts
+        with span("qldpc.osd.group"):
+            rec = {name: torch.cat([d[name] for d in pending]) for name in
+                   pending[0]}
+            ex = self._apply_osd(self.osd_x, rec["ex"], rec["px"],
+                                 rec["sy_z"], ~rec["cx"])
+            ez = self._apply_osd(self.osd_z, rec["ez"], rec["pz"],
+                                 rec["sy_x"], ~rec["cz"])
+            counts = self.classify(rec["err_x"], rec["err_z"], ex, ez,
+                                   rec["sy_z"], rec["sy_x"],
+                                   valid=torch.ones_like(rec["cx"]))
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            counts["nIterAccX"] = counts["nIterAccZ"] = zero
+            return counts
 
     def _multi_chunk_body(self, keys: torch.Tensor, p, n_valids
                           ) -> Dict[str, torch.Tensor]:
@@ -463,10 +495,12 @@ class ShotPipeline(nn.Module):
         if not self.use_osd:
             for k, nv in zip(keys, n_valids):
                 total = add(total, self._chunk_body(k, p, int(nv)))
+                self.chunk_at[1] += 1
             return total
         pending, n_pending = [], 0
         for k, nv in zip(keys, n_valids):
             counts, defer = self._chunk_body_defer(k, p, int(nv))
+            self.chunk_at[1] += 1
             total = add(total, counts)
             if defer is not None:
                 pending.append(defer)
@@ -603,53 +637,61 @@ def simulate_p(Hx: np.ndarray, Hz: np.ndarray, p: float,
     processes every rank times its own run after the reduction."""
     cfg = cfg or SimConfig()
     pipe = pipeline or ShotPipeline(Hx, Hz, cfg)
-    shots = cfg.shots
-    batch = pipe.batch
-    n_chunks = -(-shots // batch)
-    tpc = pipe.tiles_per_chunk
-    seed = cfg.rng_seed if cfg.rng_seed is not None else 0
-    key = fold_in(prng_key(seed, device=pipe.device), p_index)
-    progress = cfg.progress and world()[0] == 0
+    with span("qldpc.job", p_index=p_index):
+        shots = cfg.shots
+        batch = pipe.batch
+        n_chunks = -(-shots // batch)
+        tpc = pipe.tiles_per_chunk
+        seed = cfg.rng_seed if cfg.rng_seed is not None else 0
+        key = fold_in(prng_key(seed, device=pipe.device), p_index)
+        progress = cfg.progress and world()[0] == 0
 
-    store = CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    ckpt_id = (f"p{p_index}_{cfg.dec_type}{cfg.dec_schedule}_"
-               + _ckpt_id(pipe, cfg, seed, p, p_index))
-    totals = torch.zeros(len(_COUNTER_KEYS), dtype=torch.int64)
-    start_chunk = 0
-    if store is not None:
-        saved = store.load(ckpt_id)
-        if saved is not None:
-            totals = torch.tensor([saved[0][k] for k in _COUNTER_KEYS])
-            start_chunk = saved[1]
-
-    def count(c, g, first):
-        if pipe.slots is not None:
-            keys, nv = _slot_layout(pipe, shots, c, g, [key])
-            return pipe.run_slots(keys, [p], nv)[0]
-        # global tile stream: chunk c owns tiles [c * tpc, (c + 1) * tpc)
-        keys = chunk_keys(key, c * tpc, g * tpc).reshape(g, tpc, 2)
-        n_valids = [min(batch, shots - i * batch) for i in range(c, c + g)]
-        # the first chunk alone on the in-chunk path, but under the group
-        # cascade, whose chunks a run's first one must exercise as well
-        counts = (pipe._chunk_body(keys[0], p, n_valids[0])
-                  if first and pipe.group_cascade is None
-                  else pipe._multi_chunk_body(keys, p, n_valids))
-        return torch.stack([counts[k].to(torch.int64)
-                            for k in _COUNTER_KEYS]).cpu()
-
-    def after_group(chunks_done):
+        store = (CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir
+                 else None)
+        ckpt_id = (f"p{p_index}_{cfg.dec_type}{cfg.dec_schedule}_"
+                   + _ckpt_id(pipe, cfg, seed, p, p_index))
+        totals = torch.zeros(len(_COUNTER_KEYS), dtype=torch.int64)
+        start_chunk = 0
         if store is not None:
-            store.save(ckpt_id, dict(zip(_COUNTER_KEYS, totals.tolist())),
-                       chunks_done)
-        if progress:
-            print(f"\r(p={p:5.2e}) decoded {min(chunks_done * batch, shots)}"
-                  f"/{shots} shots", end="", flush=True)
+            saved = store.load(ckpt_id)
+            if saved is not None:
+                totals = torch.tensor([saved[0][k] for k in _COUNTER_KEYS])
+                start_chunk = saved[1]
 
-    wall, warm, warm_shots = _key_groups(count, totals, start_chunk,
-                                         n_chunks, shots, batch, after_group)
-    if progress:
-        print()
-    return _result(p, shots, totals, wall, warm, warm_shots)
+        def count(c, g, first):
+            with span("qldpc.group", chunk=c, chunks=g):
+                pipe.locate([p_index], c)
+                if pipe.slots is not None:
+                    keys, nv = _slot_layout(pipe, shots, c, g, [key])
+                    return pipe.run_slots(keys, [p], nv)[0]
+                # global tile stream: chunk c owns tiles [c tpc, (c + 1) tpc)
+                keys = chunk_keys(key, c * tpc, g * tpc).reshape(g, tpc, 2)
+                n_valids = [min(batch, shots - i * batch)
+                            for i in range(c, c + g)]
+                # the first chunk alone on the in-chunk path, but under the
+                # group cascade, whose chunks a run's first one must
+                # exercise as well
+                counts = (pipe._chunk_body(keys[0], p, n_valids[0])
+                          if first and pipe.group_cascade is None
+                          else pipe._multi_chunk_body(keys, p, n_valids))
+                with span("qldpc.readback"):
+                    return torch.stack([counts[k].to(torch.int64)
+                                        for k in _COUNTER_KEYS]).cpu()
+
+        def after_group(chunks_done):
+            if store is not None:
+                store.save(ckpt_id, dict(zip(_COUNTER_KEYS,
+                                             totals.tolist())), chunks_done)
+            if progress:
+                print(f"\r(p={p:5.2e}) decoded "
+                      f"{min(chunks_done * batch, shots)}/{shots} shots",
+                      end="", flush=True)
+
+        wall, warm, warm_shots = _key_groups(
+            count, totals, start_chunk, n_chunks, shots, batch, after_group)
+        if progress:
+            print()
+        return _result(p, shots, totals, wall, warm, warm_shots)
 
 
 def _result(p, shots, totals, wall, warm, warm_shots) -> PPointResult:
@@ -710,42 +752,48 @@ def simulate_sweep(Hx: np.ndarray, Hz: np.ndarray, ps: Sequence[float],
     store = CheckpointStore(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     results: List[PPointResult] = []
     for blk0 in range(0, ps.size, n_p):
-        blk = ps[blk0:blk0 + n_p]
-        # the rows past a short block's end repeat its last point
-        last = [min(i, blk.size - 1) for i in range(n_p)]
-        p_rows = [float(blk[i]) for i in last]
-        key_rows = [fold_in(base_key, blk0 + i) for i in last]
-        totals = torch.zeros((n_p, len(_COUNTER_KEYS)), dtype=torch.int64)
-        ckpt_id = (f"sweepblk{blk0}_{cfg.dec_type}{cfg.dec_schedule}_"
-                   + _ckpt_id(pipe, cfg, seed, blk, blk0, kind="sweep",
-                              n_p=n_p))
-        start_chunk = 0
-        if store is not None:
-            saved = store.load(ckpt_id)
-            if saved is not None:
-                totals = torch.tensor([saved[0][k] for k in _COUNTER_KEYS]).T
-                start_chunk = saved[1]
-
-        def count(c, g, first):
-            keys, nv = _slot_layout(pipe, shots, c, g, key_rows)
-            nv[blk.size * pipe.n_dev:] = 0  # the rows past the block's end
-            return pipe.run_slots(keys, p_rows, nv)
-
-        def after_group(chunks_done):
+        with span("qldpc.job", p_index=blk0):
+            blk = ps[blk0:blk0 + n_p]
+            # the rows past a short block's end repeat its last point
+            last = [min(i, blk.size - 1) for i in range(n_p)]
+            p_rows = [float(blk[i]) for i in last]
+            key_rows = [fold_in(base_key, blk0 + i) for i in last]
+            totals = torch.zeros((n_p, len(_COUNTER_KEYS)),
+                                 dtype=torch.int64)
+            ckpt_id = (f"sweepblk{blk0}_{cfg.dec_type}{cfg.dec_schedule}_"
+                       + _ckpt_id(pipe, cfg, seed, blk, blk0, kind="sweep",
+                                  n_p=n_p))
+            start_chunk = 0
             if store is not None:
-                store.save(ckpt_id, dict(zip(_COUNTER_KEYS, totals.T.tolist())),
-                           chunks_done)
-            if progress:
-                print(f"\r(p-block {blk0 // n_p}) decoded "
-                      f"{min(chunks_done * batch, shots)}/{shots} shots x "
-                      f"{blk.size} p", end="", flush=True)
+                saved = store.load(ckpt_id)
+                if saved is not None:
+                    totals = torch.tensor(
+                        [saved[0][k] for k in _COUNTER_KEYS]).T
+                    start_chunk = saved[1]
 
-        wall, warm, warm_shots = _key_groups(
-            count, totals, start_chunk, n_chunks, shots, batch, after_group)
-        if progress:
-            print()
-        results += [_result(pT, shots, totals[i], wall / blk.size, warm,
-                            warm_shots) for i, pT in enumerate(blk)]
+            def count(c, g, first):
+                with span("qldpc.group", chunk=c, chunks=g):
+                    pipe.locate([blk0 + i for i in last], c)
+                    keys, nv = _slot_layout(pipe, shots, c, g, key_rows)
+                    nv[blk.size * pipe.n_dev:] = 0  # rows past the block's end
+                    return pipe.run_slots(keys, p_rows, nv)
+
+            def after_group(chunks_done):
+                if store is not None:
+                    store.save(ckpt_id, dict(zip(
+                        _COUNTER_KEYS, totals.T.tolist())), chunks_done)
+                if progress:
+                    print(f"\r(p-block {blk0 // n_p}) decoded "
+                          f"{min(chunks_done * batch, shots)}/{shots} shots x "
+                          f"{blk.size} p", end="", flush=True)
+
+            wall, warm, warm_shots = _key_groups(
+                count, totals, start_chunk, n_chunks, shots, batch,
+                after_group)
+            if progress:
+                print()
+            results += [_result(pT, shots, totals[i], wall / blk.size, warm,
+                                warm_shots) for i, pT in enumerate(blk)]
     return results
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from qldpcsim_torch.parallel.keys import chunk_keys
+from qldpcsim_torch.utils.profiling import span
 
 __all__ = ["Mesh", "multihost_init", "make_mesh", "chunk_keys",
            "allreduce_counters_host", "local_mesh_rows",
@@ -148,10 +149,11 @@ def allreduce_counters_host(counts: torch.Tensor) -> torch.Tensor:
     if counts.dtype != torch.int64 or counts.device.type != "cpu":
         raise ValueError(f"counters must be an int64 CPU tensor, got "
                          f"{counts.dtype} on {counts.device}")
-    if world()[1] > 1:
-        counts = counts.clone()
-        dist.all_reduce(counts, op=dist.ReduceOp.SUM)
-    return counts
+    with span("qldpc.mesh.allreduce"):
+        if world()[1] > 1:
+            counts = counts.clone()
+            dist.all_reduce(counts, op=dist.ReduceOp.SUM)
+        return counts
 
 
 def local_mesh_rows(mesh: Mesh) -> List[Tuple[int, torch.device]]:
@@ -199,11 +201,13 @@ def per_device_multi_chunk_fn(mesh: Mesh, bodies: Sequence[Callable],
         thread_name_prefix=f"slot{s}") for s, d in local_mesh_rows(mesh)]
 
     def slot_work(body, device, keys, p, n_valid):
-        keep = [i for i, nv in enumerate(n_valid) if nv > 0]
-        keys = keys[keep].to(device)
-        counts = body(keys, p, [int(n_valid[i]) for i in keep])
-        return torch.stack([counts[k].to(torch.int64)
-                            for k in counter_keys]).cpu()
+        with span("qldpc.mesh.slot"):
+            keep = [i for i, nv in enumerate(n_valid) if nv > 0]
+            keys = keys[keep].to(device)
+            counts = body(keys, p, [int(n_valid[i]) for i in keep])
+            with span("qldpc.readback"):
+                return torch.stack([counts[k].to(torch.int64)
+                                    for k in counter_keys]).cpu()
 
     def run(keys, ps, n_valids) -> torch.Tensor:
         n_valids = np.asarray(n_valids)
@@ -215,7 +219,8 @@ def per_device_multi_chunk_fn(mesh: Mesh, bodies: Sequence[Callable],
             futs.append((s // per_row, pool.submit(
                 slot_work, body, device, keys[s], ps[s // per_row],
                 n_valids[s])))
-        concurrent.futures.wait([f for _, f in futs])
+        with span("qldpc.mesh.wait"):
+            concurrent.futures.wait([f for _, f in futs])
         total = torch.zeros((rows, len(counter_keys)), dtype=torch.int64)
         for row, f in futs:
             total[row] += f.result()  # a slot's error raises here

@@ -79,6 +79,7 @@ def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "chip_mesh.py",
                                          ROOT / "chip_compare.py",
+                                         ROOT / "chip_spans.py",
                                          ROOT / "bench_torch.py",
                                          ROOT / "parity_torch.py"]
     assert len(files) > 10
