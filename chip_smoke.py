@@ -219,6 +219,13 @@ Phases (any failure raises and exits non-zero):
      core for MS and BP with OSD, numpy for BF and NG) at a fifth of its
      shots; every row within 4 sigma, each row's seconds on both sides,
      and kernels A, B (MS and BP), C and D (MS) launched by the rows;
+ 33. the straggler cascade on kernel B: the full-depth path (one launch a
+     side) against the stages (the tail compacted and decoded in windows
+     on the host), both sides of a chunk, MS-L-50 at p = 0.05 and BP-F-99
+     at p = 0.03 on lp118_0, 8 chunks of the flagship's keys: results
+     equal bit for bit; per path, in turns, the wall ms a chunk, the host
+     ms from call to return, host syncs, launches and the card's busy ms a
+     chunk (kernel B's among them, from `torch.profiler`);
  M1. the flagship on a 2-slot mesh of cuda:0 in this process (a host thread
      per slot, 2048 shots each a chunk): counters equal to phase 7's, kernel
      A launched once per chunk and slot, warm shots/s beside phase 7's and a
@@ -335,6 +342,8 @@ GC_SPAN_SHOTS = 8 * BATCH
 PARITY_ENGINE_SHOTS = 4 * BATCH
 PARITY_SCALE = 0.2
 PARITY_CONTROL = "5b_lp118_ms_osd2"
+# phase 33: the chunks of the cascade's two paths' comparison
+CASCADE_CHUNKS = 8
 # M2: the seconds a rank may take before the phase fails
 RANK_TIMEOUT_S = 240
 # M2d: two ranks time the counter all-reduce (9 counters, and 2 p-rows)
@@ -567,6 +576,118 @@ def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0,
                       f"{v[1] / chunks:.2f} calls"
                       for (sd, i), v in stage_ms.items() if sd == side)
                   + f"  [{smi}]")
+
+
+def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
+    """Phase 33: the straggler cascade on kernel B, the full-depth path
+    (`Cascade.forward_full`) against the stages (`forward_stages`), both
+    sides of a chunk, for the benchmark's two decoders on lp118_0 (MS-L-50
+    at p = 0.05, BP-F-99 at p = 0.03). On `chunks` chunks of the flagship's
+    keys: the results of both paths equal bit for bit, then per path, in
+    turns (stages, full, full, stages, `rounds` times): the wall ms a chunk
+    (host clock around all chunks, ending in a sync), the host ms from the
+    call to the return of both sides (the card idle at each call), the
+    cascades' host syncs and kernel-B launches, and under `torch.profiler`
+    the kernels launched and the card's busy ms a chunk, kernel B's among
+    them."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qldpcsim_torch.codes import get_code
+    from qldpcsim_torch.engine.montecarlo import ShotPipeline, SimConfig
+    from qldpcsim_torch.ops import ms_qc_cuda
+    from qldpcsim_torch.parallel.keys import chunk_keys
+    from qldpcsim_torch.utils.threefry import fold_in, prng_key
+
+    code = get_code(CODE)
+    Hx, Hz = np.asarray(code.Hx) % 2, np.asarray(code.Hz) % 2
+    tpc = BATCH // 64
+    for label, kind, sched, cap, p in (
+            ("MS-L-50", "MS", "L", 50, P_POINT),
+            ("BP-F-99", "BP", "F", 99, C5_P)):
+        cfg = SimConfig(shots=chunks * BATCH, dec_type=kind,
+                        dec_iterations=cap, dec_schedule=sched,
+                        batch_size=BATCH, rng_seed=SEED, device="cuda")
+        pipe = ShotPipeline(Hx, Hz, cfg)
+        sides = (pipe.dec_x, pipe.dec_z)
+        check(all(d.kernel_b for d in sides),
+              f"33 {label}: both cascades take the full-depth path")
+        key = fold_in(prng_key(SEED, device=pipe.device), 0)
+        syns = [pipe._sample_chunk(chunk_keys(key, ci * tpc, tpc), p)[2:]
+                for ci in range(chunks)]
+        prior = np.float32(p) / np.float32(3.0)
+
+        def run(path, timed=None):
+            out = []
+            for sz, sx in syns:
+                if timed is not None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out.append([getattr(d, "forward_" + path)(s, prior)
+                            for d, s in ((pipe.dec_x, sz), (pipe.dec_z, sx))])
+                if timed is not None:
+                    timed.append(time.perf_counter() - t0)
+            return out
+
+        same = True
+        for a, b in zip(run("full"), run("stages")):
+            for ra, rb in zip(a, b):
+                same &= all(torch.equal(getattr(ra, f), getattr(rb, f))
+                            for f in ("e_hat", "n_iter", "converged",
+                                      "posterior"))
+        check(same, f"33 {label}: the full-depth path equals the stages, "
+              "bit for bit")
+        stats = {"stages": [], "full": []}
+        for _ in range(rounds):
+            for path in ("stages", "full", "full", "stages"):
+                syncs0 = sum(d.syncs for d in sides)
+                b0 = ms_qc_cuda.LAUNCHES[kind]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(path)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / chunks
+                enq = []
+                run(path, timed=enq)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    run(path)
+                    torch.cuda.synchronize()
+                kern = [e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset"))]
+                b_us = sum(e.time_range.elapsed_us() for e in kern
+                           if "ms_qc_kernel" in e.name)
+                stats[path].append({
+                    "wall_ms": 1e3 * wall,
+                    "enqueue_ms": 1e3 * float(np.mean(enq)),
+                    # both sides, over the three passes above
+                    "syncs": (sum(d.syncs for d in sides) - syncs0)
+                    / (3 * chunks),
+                    "b_launches": (ms_qc_cuda.LAUNCHES[kind] - b0)
+                    / (3 * chunks),
+                    "launches": len(kern) / chunks,
+                    "busy_ms": sum(e.time_range.elapsed_us() for e in kern)
+                    / 1e3 / chunks,
+                    "kernel_b_ms": b_us / 1e3 / chunks})
+        for path, runs_ in stats.items():
+            med = {k: float(np.median([r[k] for r in runs_]))
+                   for k in runs_[0]}
+            print(f"  {label} {path}: a chunk (both sides, median of "
+                  f"{len(runs_)} runs of {chunks} chunks): wall "
+                  f"{med['wall_ms']:.4f} ms, host from call to return "
+                  f"{med['enqueue_ms']:.4f} ms, card busy "
+                  f"{med['busy_ms']:.4f} ms (kernel B "
+                  f"{med['kernel_b_ms']:.4f} in {med['b_launches']:.2f} "
+                  f"launches), {med['launches']:.2f} launches, "
+                  f"{med['syncs']:.2f} host syncs; runs: " + "; ".join(
+                      f"{r['wall_ms']:.4f}/{r['enqueue_ms']:.4f}/"
+                      f"{r['busy_ms']:.4f}" for r in runs_) + f"  [{smi}]")
+        check(all(r["syncs"] == 0 and r["b_launches"] == 2
+                  for r in stats["full"]),
+              f"33 {label}: no cascade sync, one kernel-B launch a side")
 
 
 def main():
@@ -2967,6 +3088,10 @@ def main():
           f"sigma; max bound {max(r['bound'] for r in par_rows):.4f}  "
           f"[{smi}]")
     print(f"phase 32: {time.perf_counter() - t_par:.1f} s")
+
+    # 33. the cascade on kernel B: one full-depth launch against the stages
+    phase("33 the cascade on kernel B: full depth against the stages")
+    cascade_paths(smi)
     t_mesh = time.perf_counter()
 
     # M1. the flagship on a 2-slot mesh of the one card: a host thread per

@@ -10,9 +10,17 @@ reproduces the continued trajectory exactly: results, posteriors and
 iteration counts are bit-identical to one full-depth decode, whatever the
 windows.
 
-The reference's `lax.while_loop` over windows becomes a Python loop here.
-Its trip count comes from `n_failed.item()`: one host synchronisation per
-stage per chunk. Capturing the stages in a CUDA graph is later work.
+That last fact picks the path. Kernel B (a `QCDecoder` on the card, not
+`stacked`) gives every shot a block of its own, which leaves its loop when
+the shot converges: one full-depth launch over the batch already costs each
+shot only its own iterations, and the refinement stages would decode the
+stragglers again, with a host synchronisation each. There the cascade is one
+call of its last stage decoder (`forward_full`), and no count reaches the
+host. Every other decoder runs its batch in lockstep (kernels D, E and F,
+and every plain version on the CPU, kernel B's included), and keeps the
+stages (`forward_stages`): the reference's `lax.while_loop` over windows
+becomes a Python loop whose trip count comes from `n_failed`, one host
+synchronisation per refinement stage reached.
 
 Serial schedules carry the reference's high-p guard: when more than 2/3 of
 the batch fails the head, the shallow intermediate stages cannot pay for
@@ -32,6 +40,7 @@ import torch
 from torch import nn
 
 from qldpcsim_torch.decoders.common import DecodeResult
+from qldpcsim_torch.ops.ms_qc_cuda import QCDecoder
 from qldpcsim_torch.utils.profiling import span
 
 
@@ -76,11 +85,29 @@ class Cascade(nn.Module):
         self.decs = nn.ModuleList(decoders)
         self.stages = list(stages)
         self.highp_guard = highp_guard and len(self.stages) > 2
+        # every stage decoder is kernel B's: on the card, one full-depth launch
+        self.kernel_b = not self.highp_guard and all(
+            isinstance(d, QCDecoder) and not d.stacked for d in decoders)
         self.guard_fired = 0  # calls in which the high-p guard took over
-        self.stage_lanes = [0] * len(self.stages)  # lanes decoded per stage
+        # lanes decoded per stage; the full-depth path counts its batch as
+        # the head's
+        self.stage_lanes = [0] * len(self.stages)
         self.syncs = 0  # host syncs: one per refinement stage reached
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
+        if self.kernel_b and syndromes.is_cuda:
+            return self.forward_full(syndromes, p)
+        return self.forward_stages(syndromes, p)
+
+    def forward_full(self, syndromes: torch.Tensor, p) -> DecodeResult:
+        """The whole batch in one call of the full-depth stage decoder."""
+        with span("qldpc.cascade.head"):
+            r = self.decs[-1](syndromes, p)
+        self.stage_lanes[0] += syndromes.shape[0]
+        return r
+
+    def forward_stages(self, syndromes: torch.Tensor, p) -> DecodeResult:
+        """The stages as a host loop over windows of the sorted tail."""
         B = syndromes.shape[0]
         with span("qldpc.cascade.head"):
             r = self.decs[0](syndromes, p)

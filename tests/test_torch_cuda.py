@@ -1301,3 +1301,119 @@ def test_group_cascade_bp_osd_on_card(cuda_device, monkeypatch):
     assert new.counters == plain.counters
     assert new.avg_iterations_x == plain.avg_iterations_x
     assert new.avg_iterations_z == plain.avg_iterations_z
+
+
+
+# kernel B's variants under the straggler cascade: (kind, schedule, cap,
+# check, state dtype, stacked-update writeback, state in device memory)
+CASCADE_VARIANTS = {
+    "f32 MS-L-50": ("MS", "L", 50, "iter", torch.float32, False, False),
+    "f32 BP-F-99": ("BP", "F", 99, "iter", torch.float32, False, False),
+    "bf16 MS-L-50": ("MS", "L", 50, "iter", torch.bfloat16, False, False),
+    "bf16 BP-F-99": ("BP", "F", 99, "iter", torch.bfloat16, False, False),
+    "vec MS-L-50": ("MS", "L", 50, "iter", torch.float32, True, False),
+    "track MS-L-50": ("MS", "L", 50, "layer", torch.float32, False, False),
+    "track BP-L-50": ("BP", "L", 50, "layer", torch.float32, False, False),
+    "gmem MS-L-50": ("MS", "L", 50, "iter", torch.float32, False, True),
+    "gmem BP-F-99": ("BP", "F", 99, "iter", torch.float32, False, True),
+}
+
+
+def _kernel_b_cascades(H, device, variant):
+    """Two cascades of kernel-B decoders of one variant (one for each path)
+    and the full-depth decoder."""
+    from qldpcsim_torch.decoders import TannerGraph
+    from qldpcsim_torch.decoders.cascade import make_cascade
+
+    kind, sched, cap, chk, dtype, vec, gmem = CASCADE_VARIANTS[variant]
+    st = detect_qc(H)
+    cfg = DecoderConfig(dec_type=kind, max_iter=cap, schedule=sched,
+                        qc_check_every=chk)
+
+    def factory(graph, c, layers=None):
+        d = ms_qc_cuda.make_qc_decoder(st, c, layers=layers, device=device,
+                                       dtype=dtype, vec=vec)
+        d.state_on_device = d.state_on_device or gmem
+        return d
+
+    graph, layers = TannerGraph.build(H), build_layers(H, sched)
+    out = [make_cascade(factory, graph, cfg, layers) for _ in range(2)]
+    full = factory(graph, cfg, layers=layers)
+    assert full.vec == vec and full.track_mis == (chk == "layer")
+    assert full.state_on_device == gmem
+    return out + [full]
+
+
+def _same_result(a, b):
+    for name in ("e_hat", "n_iter", "converged", "posterior"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", ["none", "some", "all", "partial"])
+@pytest.mark.parametrize("variant", list(CASCADE_VARIANTS))
+def test_cascade_full_depth_equals_stages_on_card(cuda_device, variant,
+                                                  chunk):
+    """The cascade on kernel B: one full-depth launch whose results equal,
+    bit for bit, the stages' (`forward_stages`) and the full-depth
+    decoder's, with no host sync and the batch counted as the head's
+    lanes; for chunks where no lane, some lanes or every lane fails the
+    head, and a partial chunk."""
+    from qldpcsim_torch.decoders.cascade import Cascade
+
+    H = np.asarray(get_code("lp118_0").Hz) % 2
+    casc, host, full = _kernel_b_cascades(H, cuda_device, variant)
+    assert isinstance(casc, Cascade) and casc.kernel_b
+    p_err = {"none": 0.002, "some": 0.05, "all": 0.3, "partial": 0.05}[chunk]
+    syns = [_syndromes(17, H, 4096, p_err, cuda_device)]
+    if chunk == "partial":
+        syns.append(syns[0][:1000].clone())
+        syns[1][700:] = 0
+    prior = np.float32(0.05) / np.float32(3.0)
+    kind = casc.decs[0].kind
+    for syn in syns:
+        before = dict(ms_qc_cuda.LAUNCHES)
+        r_casc = casc(syn, prior)
+        assert ms_qc_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
+        r_host = host.forward_stages(syn, prior)
+        r_full = full(syn, prior)
+        torch.cuda.synchronize()
+        _same_result(r_casc, r_full)
+        _same_result(r_host, r_full)
+        head_fail = int((r_full.n_iter > casc.stages[0][0]).sum())
+        n = syn.shape[0]
+        assert {"none": head_fail == 0, "some": 0 < head_fail < n,
+                "all": head_fail == n,
+                "partial": 0 < head_fail < n}[chunk]
+    n_shots = sum(s.shape[0] for s in syns)
+    assert casc.stage_lanes == [n_shots] + [0] * (len(casc.stages) - 1)
+    assert host.stage_lanes[0] == n_shots
+    assert casc.syncs == 0 and host.syncs > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,sched,cap,p", [("MS", "L", 50, 0.05),
+                                              ("BP", "F", 99, 0.03)])
+def test_simulate_p_full_depth_counts_as_stages_on_card(
+        cuda_device, monkeypatch, kind, sched, cap, p):
+    """`simulate_p` on lp118_0 (the benchmark's two decoders, 2 chunks of
+    4096): the full-depth path's counters and iterations equal the stages'
+    on the same seed, with one kernel-B launch per side and chunk and no
+    cascade sync."""
+    from qldpcsim_torch.decoders.cascade import Cascade
+
+    c = get_code("lp118_0")
+    cfg = SimConfig(shots=8192, dec_type=kind, dec_iterations=cap,
+                    dec_schedule=sched, batch_size=4096, rng_seed=19,
+                    device="cuda")
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    assert pipe.dec_x.kernel_b and pipe.dec_z.kernel_b
+    before = ms_qc_cuda.LAUNCHES[kind]
+    full = simulate_p(c.Hx, c.Hz, p, cfg, pipeline=pipe)
+    assert ms_qc_cuda.LAUNCHES[kind] - before == 2 * 2
+    assert pipe.dec_x.syncs == pipe.dec_z.syncs == 0
+    monkeypatch.setattr(Cascade, "forward", Cascade.forward_stages)
+    stages = simulate_p(c.Hx, c.Hz, p, cfg)
+    assert full.counters == stages.counters
+    assert full.avg_iterations_x == stages.avg_iterations_x
+    assert full.avg_iterations_z == stages.avg_iterations_z
