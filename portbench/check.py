@@ -11,7 +11,10 @@ input and output):
               syndromes; a shot counts when either error or either syndrome
               differs from the program's;
   decode      a sample of the chunk's shots (drawn from the seed) is decoded
-              again from the reference's syndromes on both sides; a (shot,
+              again from the reference's syndromes on both sides, by the
+              `decode` of the module of `portbench/reference/` that the
+              configuration names (`reference.decode`; `decode` without
+              it, the flooding and layered schedules); a (shot,
               side) pair counts when the estimate, the iteration count or
               convergence differs; over the pairs that agree and converged,
               the pair's mean relative posterior gap |P - R| / max(|R|, 1)
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import os
 import pickle
 import subprocess
@@ -47,13 +51,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from portbench import yardstick
-from portbench.reference import channel, classify, decode, osd
+from portbench.reference import channel, classify, osd
 
 ROOT = Path(__file__).resolve().parents[1]
 COUNTERS = classify.EVENTS + ("nIterAccX", "nIterAccZ")
 # the order in which the numbers are printed
 ORDER = ("channel_bad", "decode_bad_share", "posterior_gap", "osd_bad",
          "classify_bad", "counters_bad")
+
+
+@functools.lru_cache(maxsize=None)
+def _decoder(name: str):
+    """`decode` of the reference module `name` (`portbench/reference/`;
+    the harness has checked the name), imported once per process."""
+    return importlib.import_module(f"portbench.reference.{name}").decode
 
 
 @functools.lru_cache(maxsize=4)
@@ -87,14 +98,15 @@ def check_chunk(task: dict) -> dict:
         out["channel_bad"] = int(bad.sum())
         syn = {"x": rsz, "z": rsx}
     dec = task["decoder"]
+    decode = _decoder(task["reference"])
     sample = task["sample"]
     for side, H in (("x", Hz), ("z", Hx)):
         prog = task["decode"].get(side)
         if prog is None or syn is None:
             continue
-        e, it, cv, post = decode.decode(H, syn[side][sample], p, dec["type"],
-                                        dec["schedule"], dec["iterations"],
-                                        dec["beta"], dec["eps"])
+        e, it, cv, post = decode(H, syn[side][sample], p, dec["type"],
+                                 dec["schedule"], dec["iterations"],
+                                 dec["beta"], dec["eps"])
         pe, pit, pcv, ppost = prog
         differ = ((pe.astype(np.uint8) != e).any(1)
                   | (pit.astype(np.int64) != it) | (pcv.astype(bool) != cv))

@@ -25,7 +25,9 @@ A run, in one process per card:
            around the pipeline's layers) and a trace pass (`torch.profiler`,
            device and host), each one job of its own;
   check    the chunks the window kept, against the plain reference
-           (`check.py`), after the window and the memory reading.
+           (`check.py`; the decode's module is the configuration's
+           `reference.decode`, `decode` without it), after the window and
+           the memory reading.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -54,6 +57,8 @@ PASS_INDEX = 1 << 30            # key branches of the layer and trace passes
 WARM_CHUNKS = 4                 # chunks per card of the warm job
 LAYER_CHUNKS = 64               # chunks per card of the layer pass
 TRACE_CHUNKS = 16               # chunks per card of the trace pass
+# a module of portbench/reference/ that a configuration may name
+REFERENCE_NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 class CellError(RuntimeError):
@@ -71,6 +76,7 @@ class Cell:
     root: Path
     end_to_end: List[dict]
     per_layer: List[dict]
+    reference: str
 
     @property
     def batch(self) -> int:
@@ -90,6 +96,19 @@ class Cell:
 
 def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
+
+
+def decode_reference(root: Path, config: dict) -> str:
+    """The module of `portbench/reference/` whose `decode` the check runs
+    for a configuration: its `reference.decode`, `decode` without it."""
+    name = config.get("reference", {}).get("decode", "decode")
+    if not (isinstance(name, str) and REFERENCE_NAME.fullmatch(name)):
+        raise CellError(f"reference.decode must name a module of "
+                        f"portbench/reference/ by a plain identifier, got "
+                        f"{name!r}")
+    if not (Path(root) / "portbench" / "reference" / f"{name}.py").is_file():
+        raise CellError(f"no module portbench/reference/{name}.py")
+    return name
 
 
 def load_cell(root: Path, name: str) -> Cell:
@@ -116,7 +135,8 @@ def load_cell(root: Path, name: str) -> Cell:
                 end_to_end=[m for m in bench["end_to_end"]
                             if _applies(m, name)],
                 per_layer=[m for m in bench["per_layer"]
-                           if _applies(m, name)])
+                           if _applies(m, name)],
+                reference=decode_reference(root, config))
 
 
 def forbidden_modules() -> List[str]:
@@ -433,7 +453,7 @@ class Session:
                     conf["decoder"].get("eps", 1e-6))),
                 "decode": host["decode"],
                 "osd_order": int(conf["osd_order"]), "osd": osd_calls,
-                "classify": host["classify"]})
+                "classify": host["classify"], "reference": cell.reference})
             jobs.append({"job": kept.job, "totals": counts,
                          "sums": host["sums"], "valid": host["valid"]})
         return out, jobs
