@@ -16,11 +16,14 @@ the shot converges: one full-depth launch over the batch already costs each
 shot only its own iterations, and the refinement stages would decode the
 stragglers again, with a host synchronisation each. There the cascade is one
 call of its last stage decoder (`forward_full`), and no count reaches the
-host. Every other decoder runs its batch in lockstep (kernels D, E and F,
-and every plain version on the CPU, kernel B's included), and keeps the
-stages (`forward_stages`): the reference's `lax.while_loop` over windows
-becomes a Python loop whose trip count comes from `n_failed`, one host
-synchronisation per refinement stage reached.
+host. Every other decoder keeps the stages (`forward_stages`): the
+reference's `lax.while_loop` over windows becomes a Python loop whose trip
+count comes from `n_failed`, one host synchronisation per refinement stage
+reached. The plain versions on the CPU (kernel B's included) run their batch
+in lockstep, so there the stages save work. Kernels D, E and F do not run in
+lockstep: like kernel B they give each shot its own warp (D) or block (E, F),
+which leaves at the shot's latch or convergence. They keep the stages only
+because no benchmark cell had measured them against one full-depth launch.
 
 Serial schedules carry the reference's high-p guard: when more than 2/3 of
 the batch fails the head, the shallow intermediate stages cannot pay for
@@ -93,6 +96,7 @@ class Cascade(nn.Module):
         # the head's
         self.stage_lanes = [0] * len(self.stages)
         self.syncs = 0  # host syncs: one per refinement stage reached
+        self.windows = 0  # refinement windows decoded
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         if self.kernel_b and syndromes.is_cuda:
@@ -128,11 +132,13 @@ class Cascade(nn.Module):
                 self.stage_lanes[-1 if heavy else level] += n_failed
                 for lo in range(0, n_failed, W):
                     idx = order[lo:lo + W]
-                    s = dec(syndromes[idx], p)
-                    e[idx] = s.e_hat
-                    it[idx] = s.n_iter
-                    conv[idx] = s.converged
-                    post[idx] = s.posterior
+                    with span("qldpc.cascade.window", lanes=idx.numel()):
+                        s = dec(syndromes[idx], p)
+                        e[idx] = s.e_hat
+                        it[idx] = s.n_iter
+                        conv[idx] = s.converged
+                        post[idx] = s.posterior
+                    self.windows += 1
                 if heavy:  # the tail was decoded at full depth: none is left
                     self.guard_fired += 1
                     break

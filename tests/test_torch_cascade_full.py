@@ -195,8 +195,9 @@ def _stacked(H):
 
 @pytest.mark.parametrize("kernel", ["D", "E", "F"])
 def test_other_kernels_keep_the_stages(kernel):
-    """Kernels D (serial, with the high-p guard), E and F run their batch
-    in lockstep: the stages, a host sync per stage reached."""
+    """Kernels D (serial, with the high-p guard), E and F keep the stages,
+    a host sync per stage reached, though each shot leaves their launch at
+    its latch or convergence as in kernel B's."""
     H = _H("lp04_0")
     if kernel == "D":
         casc = _serial(H)

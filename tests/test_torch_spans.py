@@ -45,7 +45,7 @@ MS30 = dict(dec_type="MS", dec_iterations=30, dec_schedule="L", rng_seed=3,
             batch_size=256)
 CHUNK = {"qldpc.job", "qldpc.group", "qldpc.readback", "qldpc.channel",
          "qldpc.classify", "qldpc.cascade.head", "qldpc.cascade.stage",
-         "qldpc.cascade.compact"}
+         "qldpc.cascade.compact", "qldpc.cascade.window"}
 SIDES = {"qldpc.chunk", "qldpc.decode.x", "qldpc.decode.z"}
 # (code, p, SimConfig fields, group cascade on, the spans the run records)
 CASES = {
@@ -85,6 +85,7 @@ def _counts(res, pipe):
         casc = [d for d in (s.dec_x, s.dec_z) if isinstance(d, Cascade)]
         out[f"{i}.syncs"] = [d.syncs for d in casc]
         out[f"{i}.stage_lanes"] = [list(d.stage_lanes) for d in casc]
+        out[f"{i}.windows"] = [d.windows for d in casc]
         out[f"{i}.osd"] = [dict(s.osd_shots), s.osd_syncs]
         if s.group_cascade is not None:
             gc = s.group_cascade
@@ -175,6 +176,22 @@ def test_spans_nest_as_the_layers(runs):
         if r.parent is not None:
             assert r.parent.start_ns <= r.start_ns <= r.end_ns \
                 <= r.parent.end_ns
+
+
+def test_a_window_span_per_refinement_window(runs):
+    """Each refinement window of the staged cascade is one
+    `qldpc.cascade.window` inside its `qldpc.cascade.stage`, with its lanes:
+    as many as `Cascade.windows` counted, their lanes the lanes the
+    refinement stages decoded."""
+    off, on, records, _, _ = runs["ms_cascade"]
+    windows = [r for r in records if r.name == "qldpc.cascade.window"]
+    assert windows
+    assert all(r.parent.name == "qldpc.cascade.stage" for r in windows)
+    assert all(1 <= r.args["lanes"] <= 64 for r in windows)
+    assert len(windows) == sum(_sub(on["0.windows"], off["0.windows"]))
+    assert sum(r.args["lanes"] for r in windows) == sum(
+        sum(lanes[1:]) for lanes in _sub(on["0.stage_lanes"],
+                                         off["0.stage_lanes"]))
 
 
 def test_mesh_slot_threads_carry_their_chunks(runs):
