@@ -82,9 +82,9 @@ Phases (any failure raises and exits non-zero):
  13. config 4: `simulate` on the Tanner code files (min-sum, serial, 30
      iterations, p = 0.01, 0.04, 0.07, 0.1, 32,768 shots each, seed 0) on
      the card; per p the counters, qBLER, iterations, warm shots/s,
-     launches and lanes per cascade stage, and a timed run long enough for
-     a warm window of about a second; for p = 0.01 and 0.1 a CUDA-event
-     breakdown of a chunk, and at p = 0.1 the high-p guard;
+     launches, the cascades' full-depth launches and host syncs (none),
+     and a timed run long enough for a warm window of about a second; for
+     p = 0.01 and 0.1 a CUDA-event breakdown of a chunk;
      then the same entry point with BP on 2 chunks, which drives kernel D's
      BP kind;
  14. config 4's first 1024 shots at p = 0.04 (one chunk of that size) on
@@ -612,7 +612,7 @@ def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
                         batch_size=BATCH, rng_seed=SEED, device="cuda")
         pipe = ShotPipeline(Hx, Hz, cfg)
         sides = (pipe.dec_x, pipe.dec_z)
-        check(all(d.kernel_b for d in sides),
+        check(all(d.full_depth for d in sides),
               f"33 {label}: both cascades take the full-depth path")
         key = fold_in(prng_key(SEED, device=pipe.device), 0)
         syns = [pipe._sample_chunk(chunk_keys(key, ci * tpc, tpc), p)[2:]
@@ -1584,7 +1584,7 @@ def main():
           and launches4["general_h BP"] == 0,
           "no other decoder kernel on the config-4 path")
     check(len(res4) == len(C4_P), "one result per p")
-    # per p once more on one pipeline, for launches and lanes per p
+    # per p once more on one pipeline, for launches and syncs per p
     cfg4 = SimConfig(shots=C4_SHOTS, dec_type="MS", dec_iterations=C4_ITER,
                      dec_schedule="S", rng_seed=SEED, device="cuda")
     pipe4 = ShotPipeline(Tx, Tz, cfg4)
@@ -1592,8 +1592,7 @@ def main():
     prev_q = -1.0
     for i, pT in enumerate(C4_P):
         for d in (pipe4.dec_x, pipe4.dec_z):
-            d.stage_lanes = [0] * len(d.stages)
-            d.guard_fired = 0
+            d.full_calls = d.syncs = 0
         before = read_launches()
         r = simulate_p(Tx, Tz, pT, cfg4, pipeline=pipe4, p_index=i)
         after = read_launches()
@@ -1606,10 +1605,12 @@ def main():
               f"{res4[i].shots_per_s_warm:.1f}); launches "
               f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }"
               f"  [{smi}]")
-        print(f"    lanes per cascade stage {pipe4.dec_x.stages}: X "
-              f"{pipe4.dec_x.stage_lanes}, Z {pipe4.dec_z.stage_lanes}; "
-              f"high-p guard fired in {pipe4.dec_x.guard_fired} (X) and "
-              f"{pipe4.dec_z.guard_fired} (Z) of {C4_SHOTS // BATCH} chunks")
+        print(f"    full-depth launches X {pipe4.dec_x.full_calls} Z "
+              f"{pipe4.dec_z.full_calls}, cascade host syncs X "
+              f"{pipe4.dec_x.syncs} Z {pipe4.dec_z.syncs}, over "
+              f"{C4_SHOTS // BATCH} chunks")
+        check(pipe4.dec_x.syncs == pipe4.dec_z.syncs == 0,
+              f"p={pT}: kernel D's cascade makes no host sync")
         c = r.counters
         check(c["decSuccessExact"] + c["DecFailures_X"] <= C4_SHOTS
               and c["successStabilizer"] >= c["decSuccessExact"],
@@ -1624,8 +1625,8 @@ def main():
             breakdown(pipe4, pT, ("channel", "decode X", "decode Z",
                                   "classify"), smi,
                       chunks=C4_BREAKDOWN_CHUNKS, p_index=i)
-    check(pipe4.dec_x.guard_fired > 0 and pipe4.dec_z.guard_fired > 0,
-          f"the high-p guard fired at p={C4_P[-1]}")
+    check(pipe4.dec_x.full_calls > 0 and pipe4.dec_z.full_calls > 0,
+          f"kernel D's cascade took the full-depth launch at p={C4_P[-1]}")
     check(res4[0].qbler < 0.01 and res4[-1].qbler > 0.5,
           "config-4 qBLER spans the waterfall")
     # the same entry point with BP: kernel D's other kind on a main path

@@ -10,20 +10,21 @@ reproduces the continued trajectory exactly: results, posteriors and
 iteration counts are bit-identical to one full-depth decode, whatever the
 windows.
 
-That last fact picks the path. Kernel B (a `QCDecoder` on the card, not
-`stacked`) gives every shot a block of its own, which leaves its loop when
-the shot converges: one full-depth launch over the batch already costs each
-shot only its own iterations, and the refinement stages would decode the
-stragglers again, with a host synchronisation each. There the cascade is one
-call of its last stage decoder (`forward_full`), and no count reaches the
-host. Every other decoder keeps the stages (`forward_stages`): the
-reference's `lax.while_loop` over windows becomes a Python loop whose trip
-count comes from `n_failed`, one host synchronisation per refinement stage
-reached. The plain versions on the CPU (kernel B's included) run their batch
-in lockstep, so there the stages save work. Kernels D, E and F do not run in
-lockstep: like kernel B they give each shot its own warp (D) or block (E, F),
-which leaves at the shot's latch or convergence. They keep the stages only
-because no benchmark cell had measured them against one full-depth launch.
+That last fact picks the path. Kernels B (a `QCDecoder` on the card, not
+`stacked`) and D (a `SeqQCDecoder` on the card) give every shot a block or
+warp of its own, which leaves its loop at the shot's convergence or latch:
+one full-depth launch over the batch already costs each shot only its own
+iterations, the card's block scheduler refills a slot as soon as its shot
+leaves, and the refinement stages would decode the stragglers again, with a
+host synchronisation each. There the cascade is one call of its last stage
+decoder (`forward_full`), and no count reaches the host. Every other
+decoder keeps the stages (`forward_stages`): the reference's
+`lax.while_loop` over windows becomes a Python loop whose trip count comes
+from `n_failed`, one host synchronisation per refinement stage reached. The
+plain versions on the CPU (kernel B's and D's included) run their batch in
+lockstep, so there the stages save work. Kernels E and F give each shot a
+block that leaves at convergence too; they keep the stages because no
+benchmark cell measures them against one full-depth launch.
 
 Serial schedules carry the reference's high-p guard: when more than 2/3 of
 the batch fails the head, the shallow intermediate stages cannot pay for
@@ -31,7 +32,9 @@ themselves, so they are skipped and the tail is decoded once at full depth,
 in windows of the second stage's size. The reference gates two window loops
 without a conditional; here it is a plain `if` on the `n_failed` the cascade
 brings to the host anyway. It changes no result: a from-scratch full-depth
-decode of a failed lane gives the same e_hat, n_iter and posterior.
+decode of a failed lane gives the same e_hat, n_iter and posterior. The
+full-depth path runs no stage, so it skips none and the guard has nothing
+to do there.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch import nn
 
 from qldpcsim_torch.decoders.common import DecodeResult
 from qldpcsim_torch.ops.ms_qc_cuda import QCDecoder
+from qldpcsim_torch.ops.seq_qc_cuda import SeqQCDecoder
 from qldpcsim_torch.utils.profiling import span
 
 
@@ -88,9 +92,13 @@ class Cascade(nn.Module):
         self.decs = nn.ModuleList(decoders)
         self.stages = list(stages)
         self.highp_guard = highp_guard and len(self.stages) > 2
-        # every stage decoder is kernel B's: on the card, one full-depth launch
-        self.kernel_b = not self.highp_guard and all(
-            isinstance(d, QCDecoder) and not d.stacked for d in decoders)
+        # every stage decoder is kernel B's or D's, whose shots each leave
+        # the launch at their own convergence or latch: on the card, one
+        # full-depth launch
+        self.full_depth = all(
+            isinstance(d, SeqQCDecoder)
+            or (isinstance(d, QCDecoder) and not d.stacked) for d in decoders)
+        self.full_calls = 0  # calls that took the one full-depth launch
         self.guard_fired = 0  # calls in which the high-p guard took over
         # lanes decoded per stage; the full-depth path counts its batch as
         # the head's
@@ -99,7 +107,7 @@ class Cascade(nn.Module):
         self.windows = 0  # refinement windows decoded
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
-        if self.kernel_b and syndromes.is_cuda:
+        if self.full_depth and syndromes.is_cuda:
             return self.forward_full(syndromes, p)
         return self.forward_stages(syndromes, p)
 
@@ -108,6 +116,7 @@ class Cascade(nn.Module):
         with span("qldpc.cascade.head"):
             r = self.decs[-1](syndromes, p)
         self.stage_lanes[0] += syndromes.shape[0]
+        self.full_calls += 1
         return r
 
     def forward_stages(self, syndromes: torch.Tensor, p) -> DecodeResult:

@@ -1,9 +1,12 @@
 """The straggler cascade's two paths on the CPU. Where every stage decoder
-is a `QCDecoder` on kernel B, the cascade on the card is one full-depth
-call of its last stage decoder (`Cascade.forward_full`); everywhere else,
-and for kernel B's plain version, it runs its stages (`forward_stages`).
-Here `forward_full` runs through the plain version: its results equal the
-stages' and one full-depth decode's bit for bit, with no host sync."""
+is a `QCDecoder` on kernel B or a `SeqQCDecoder` on kernel D, the cascade
+on the card is one full-depth call of its last stage decoder
+(`Cascade.forward_full`); everywhere else, and for the plain versions, it
+runs its stages (`forward_stages`). Here `forward_full` runs through the
+plain versions: its results equal the stages' (the serial schedule's with
+the high-p guard firing) and one full-depth decode's bit for bit, with no
+host sync. Syndromes that say they lie on the card (`_OnCard`) show which
+path `forward` takes there."""
 
 import numpy as np
 import pytest
@@ -73,6 +76,28 @@ def _same(a, b):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
+class _OnCard(torch.Tensor):
+    """CPU syndromes that say they lie on the card, so that
+    `Cascade.forward` routes them as it would a CUDA tensor."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _forward_on_card(casc, syn, p=PRIOR):
+    """`casc.forward` on syndromes routed as the card's; the path it picks
+    then runs on the plain CPU tensor."""
+    for name in ("forward_full", "forward_stages"):
+        real = getattr(casc, name)
+        setattr(casc, name,
+                lambda s, q, real=real: real(s.as_subclass(torch.Tensor), q))
+    try:
+        return casc(syn.as_subclass(_OnCard), p)
+    finally:
+        del casc.forward_full, casc.forward_stages
+
+
 @pytest.mark.parametrize("chunk", list(CHUNKS))
 @pytest.mark.parametrize("kind_name", list(KINDS))
 def test_full_depth_equals_stages_and_full_decode(kind_name, chunk):
@@ -84,7 +109,7 @@ def test_full_depth_equals_stages_and_full_decode(kind_name, chunk):
     syn = _syndromes(11, H, 48, p_err)
     casc, full = _decoders(kind_name, H)
     host, _ = _decoders(kind_name, H)
-    assert isinstance(casc, Cascade) and casc.kernel_b
+    assert isinstance(casc, Cascade) and casc.full_depth
     assert all(isinstance(d, QCDecoder) for d in casc.decs)
     r_casc = casc.forward_full(syn, PRIOR)
     r_host = host.forward_stages(syn, PRIOR)
@@ -126,7 +151,7 @@ def test_full_depth_equals_stages_for_kernel_b_variants(qc):
     H = _H()
     casc, full = _decoders("MS-L-50", H, **qc)
     host, _ = _decoders("MS-L-50", H, **qc)
-    assert casc.kernel_b and casc.decs[0].vec == qc.get("vec", False)
+    assert casc.full_depth and casc.decs[0].vec == qc.get("vec", False)
     syn = _syndromes(9, H, 48, 0.06)
     r = casc.forward_full(syn, PRIOR)
     _same(r, full(syn, PRIOR))
@@ -140,7 +165,7 @@ def test_the_plain_version_runs_the_stages():
     H = _H("lp04_0")
     casc = make_decoder(TannerGraph.build(H), DecoderConfig(
         max_iter=30, schedule="L"), layers=build_layers(H, "L"))
-    assert casc.kernel_b
+    assert casc.full_depth
     syn = _syndromes(3, H, 32, 0.08)
     r = casc(syn, PRIOR)
     assert casc.syncs >= 1 and casc.stage_lanes[1] > 0
@@ -170,9 +195,41 @@ def test_stage_lanes_is_assignable():
     assert casc.stage_lanes == [32, 0, 0]
 
 
-def _serial(H):
+def _serial(H, kind="MS"):
     return make_decoder(TannerGraph.build(H), DecoderConfig(
-        max_iter=30, schedule="S"), layers=build_layers(H, "S"))
+        dec_type=kind, max_iter=30, schedule="S"), layers=build_layers(H, "S"))
+
+
+# the serial schedule at p 0.10 (the Tanner cell's point): shots a chunk
+SERIAL_SHOTS = {"lp04_0": 48, "tanner": 16}
+
+
+@pytest.mark.parametrize("chunk", ["full", "partial"])
+@pytest.mark.parametrize("code", list(SERIAL_SHOTS))
+def test_serial_full_depth_equals_guarded_stages(code, chunk):
+    """A serial-schedule MS cascade (kernel D's plain version, 4 -> 10 ->
+    30) at p 0.10: the full-depth path gives the e_hat, n_iter, converged
+    and posterior of the stages bit for bit, where the high-p guard fires
+    and sends the tail straight to full depth; also on a partial chunk
+    whose last quarter is padding. The full-depth path syncs never, decodes
+    no window and leaves the guard alone."""
+    H = _H(code)
+    n = SERIAL_SHOTS[code]
+    syn = _syndromes(13, H, n, 0.10)
+    if chunk == "partial":
+        n = 3 * n // 4
+        syn = syn[:n].clone()
+        syn[n - n // 4:] = 0
+    casc, host = _serial(H), _serial(H)
+    assert casc.full_depth and casc.highp_guard
+    r = casc.forward_full(syn, PRIOR)
+    _same(r, host.forward_stages(syn, PRIOR))
+    head_fail = int((r.n_iter > casc.stages[0][0]).sum())
+    assert head_fail > (2 * n) // 3
+    assert host.guard_fired == 1 and host.syncs == 1
+    assert host.stage_lanes == [n, 0, head_fail]
+    assert casc.full_calls == 1 and casc.stage_lanes == [n, 0, 0]
+    assert casc.syncs == casc.windows == casc.guard_fired == 0
 
 
 def _general(H):
@@ -193,44 +250,77 @@ def _stacked(H):
         max_iter=30, schedule="F"), build_layers(H, "F"))
 
 
-@pytest.mark.parametrize("kernel", ["D", "E", "F"])
+@pytest.mark.parametrize("kernel", ["E", "F"])
 def test_other_kernels_keep_the_stages(kernel):
-    """Kernels D (serial, with the high-p guard), E and F keep the stages,
-    a host sync per stage reached, though each shot leaves their launch at
-    its latch or convergence as in kernel B's."""
+    """Kernels E and F keep the stages on the card too, a host sync per
+    stage reached, though each shot leaves their launch at its convergence
+    as in kernels B and D: no benchmark cell measures them yet."""
     H = _H("lp04_0")
-    if kernel == "D":
-        casc = _serial(H)
-    elif kernel == "E":
+    if kernel == "E":
         casc, H = _general(H)
     else:
         casc = _stacked(H)
         assert all(d.stacked for d in casc.decs)
-    assert isinstance(casc, Cascade) and not casc.kernel_b
-    assert casc.highp_guard == (kernel == "D")
+    assert isinstance(casc, Cascade) and not casc.full_depth
+    assert not casc.highp_guard
     syn = _syndromes(6, H, 48, 0.06)
-    r = casc(syn, PRIOR)
+    r = _forward_on_card(casc, syn)
     assert casc.syncs >= 1 and casc.stage_lanes[0] == 48
+    assert casc.full_calls == 0
     _same(r, casc.forward_stages(syn, PRIOR))
 
 
+@pytest.mark.parametrize("kind", ["MS", "BP"])
+def test_kernel_d_takes_the_full_depth_path(kind):
+    """Kernel D's cascade (serial schedule, with the high-p guard) takes the
+    one full-depth launch on the card: `full_calls` counts it and no host
+    sync is made; on CPU tensors it runs the stages, with the same
+    results."""
+    H = _H("lp04_0")
+    casc = _serial(H, kind)
+    assert isinstance(casc, Cascade) and casc.full_depth
+    assert casc.highp_guard and all(d.kind == kind for d in casc.decs)
+    syn = _syndromes(6, H, 48, 0.06)
+    r_cpu = casc(syn, PRIOR)
+    assert casc.syncs >= 1 and casc.full_calls == 0
+    syncs, lanes = casc.syncs, list(casc.stage_lanes)
+    r_card = _forward_on_card(casc, syn)
+    assert casc.full_calls == 1 and casc.syncs == syncs
+    assert casc.stage_lanes == [lanes[0] + 48] + lanes[1:]
+    _same(r_card, r_cpu)
+
+
 def test_guarded_qc_cascade_keeps_the_stages():
-    """A cascade of kernel-B decoders given the high-p guard needs the
-    failures' count on the host: it keeps the stages."""
+    """A cascade of kernel-B decoders given the high-p guard, and kernel D's
+    serial cascade, which carries it: both take the full-depth path on the
+    card, where the guard has nothing to skip, and keep the stages, with
+    the guard firing, on the CPU. Both paths give the same results."""
     H = _H("lp04_0")
     casc = make_decoder(TannerGraph.build(H), DecoderConfig(
         max_iter=30, schedule="L"), layers=build_layers(H, "L"))
-    guarded = Cascade(list(casc.decs), casc.stages, highp_guard=True)
-    assert casc.kernel_b and not guarded.kernel_b
+    guarded_b = Cascade(list(casc.decs), casc.stages, highp_guard=True)
+    syn = _syndromes(7, H, 48, 0.12)
+    for guarded in (guarded_b, _serial(H)):
+        assert guarded.highp_guard and guarded.full_depth
+        r_cpu = guarded(syn, PRIOR)
+        assert guarded.guard_fired == 1 and guarded.syncs == 1
+        assert guarded.full_calls == 0
+        r_card = _forward_on_card(guarded, syn)
+        assert guarded.full_calls == 1
+        assert guarded.guard_fired == 1 and guarded.syncs == 1
+        _same(r_card, r_cpu)
 
 
-@pytest.mark.parametrize("kind", ["MS", "BP"])
-def test_simulate_p_counts_the_same_on_both_paths(kind, monkeypatch):
-    """A seeded `simulate_p` on lp04_0 through kernel B's cascade counts
-    the same through the full-depth path as through the stages."""
+@pytest.mark.parametrize("kind,sched", [("MS", "L"), ("BP", "L"),
+                                        ("MS", "S"), ("BP", "S")],
+                         ids=["MS", "BP", "MS-S", "BP-S"])
+def test_simulate_p_counts_the_same_on_both_paths(kind, sched, monkeypatch):
+    """A seeded `simulate_p` on lp04_0 through kernel B's cascade (layered)
+    or kernel D's (serial) counts the same through the full-depth path as
+    through the stages."""
     c = get_code("lp04_0")
     cfg = SimConfig(shots=512, batch_size=256, dec_type=kind,
-                    dec_iterations=30, dec_schedule="L", rng_seed=7,
+                    dec_iterations=30, dec_schedule=sched, rng_seed=7,
                     device="cpu")
     stages = simulate_p(c.Hx, c.Hz, 0.06, cfg)
     monkeypatch.setattr(Cascade, "forward", Cascade.forward_full)

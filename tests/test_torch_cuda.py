@@ -1363,7 +1363,7 @@ def test_cascade_full_depth_equals_stages_on_card(cuda_device, variant,
 
     H = np.asarray(get_code("lp118_0").Hz) % 2
     casc, host, full = _kernel_b_cascades(H, cuda_device, variant)
-    assert isinstance(casc, Cascade) and casc.kernel_b
+    assert isinstance(casc, Cascade) and casc.full_depth
     p_err = {"none": 0.002, "some": 0.05, "all": 0.3, "partial": 0.05}[chunk]
     syns = [_syndromes(17, H, 4096, p_err, cuda_device)]
     if chunk == "partial":
@@ -1407,7 +1407,7 @@ def test_simulate_p_full_depth_counts_as_stages_on_card(
                     dec_schedule=sched, batch_size=4096, rng_seed=19,
                     device="cuda")
     pipe = ShotPipeline(c.Hx, c.Hz, cfg)
-    assert pipe.dec_x.kernel_b and pipe.dec_z.kernel_b
+    assert pipe.dec_x.full_depth and pipe.dec_z.full_depth
     before = ms_qc_cuda.LAUNCHES[kind]
     full = simulate_p(c.Hx, c.Hz, p, cfg, pipeline=pipe)
     assert ms_qc_cuda.LAUNCHES[kind] - before == 2 * 2
@@ -1417,3 +1417,44 @@ def test_simulate_p_full_depth_counts_as_stages_on_card(
     assert full.counters == stages.counters
     assert full.avg_iterations_x == stages.avg_iterations_x
     assert full.avg_iterations_z == stages.avg_iterations_z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,kind,shots,p", [("tanner", "MS", 4096, 0.10),
+                                               ("tanner", "BP", 4096, 0.10),
+                                               ("lp04_0", "MS", 256, 0.20)],
+                         ids=["tanner-MS", "tanner-BP", "lp04_0-MS"])
+def test_kernel_d_cascade_full_depth_equals_stages_on_card(cuda_device, code,
+                                                           kind, shots, p):
+    """The serial-schedule cascade on kernel D (30 iterations, one chunk of
+    the pipeline's own sampling): each side is one full-depth launch, with
+    no host sync, no window and the high-p guard idle, whose results equal,
+    bit for bit, the stages' (where the guard fires). The Tanner chunk is
+    the benchmark cell's (p 0.10); lp04_0's 256 shots, at p 0.20 so that
+    the guard fires there too, are fewer than the card holds at once."""
+    c = get_code(code)
+    cfg = SimConfig(shots=shots, dec_type=kind, dec_iterations=30,
+                    dec_schedule="S", batch_size=shots, rng_seed=23,
+                    device="cuda")
+    pipe = ShotPipeline(c.Hx, c.Hz, cfg)
+    assert pipe.batch == shots
+    key = fold_in(prng_key(23, device=pipe.device), 0)
+    sy_z, sy_x = pipe._sample_chunk(chunk_keys(key, 0, shots // 64), p)[2:]
+    prior = np.float32(p) / np.float32(3.0)
+    for casc, syn in ((pipe.dec_x, sy_z), (pipe.dec_z, sy_x)):
+        assert casc.full_depth and casc.highp_guard
+        assert all(isinstance(d, seq_qc_cuda.SeqQCDecoder)
+                   for d in casc.decs)
+        before = dict(seq_qc_cuda.LAUNCHES)
+        r_full = casc(syn, prior)
+        assert seq_qc_cuda.LAUNCHES == dict(before,
+                                            **{kind: before[kind] + 1})
+        assert casc.full_calls == 1 and casc.stage_lanes == [shots, 0, 0]
+        assert casc.syncs == casc.windows == casc.guard_fired == 0
+        r_stages = casc.forward_stages(syn, prior)
+        torch.cuda.synchronize()
+        _same_result(r_full, r_stages)
+        assert int((r_full.n_iter > casc.stages[0][0]).sum()) > (
+            2 * shots) // 3
+        assert casc.guard_fired == 1 and casc.syncs == 1
+        assert casc.full_calls == 1
