@@ -82,7 +82,8 @@ Phases (any failure raises and exits non-zero):
  13. config 4: `simulate` on the Tanner code files (min-sum, serial, 30
      iterations, p = 0.01, 0.04, 0.07, 0.1, 32,768 shots each, seed 0) on
      the card; per p the counters, qBLER, iterations, warm shots/s,
-     launches, the cascades' full-depth launches and host syncs (none),
+     launches (one kernel-D launch a side a chunk: each side is its
+     full-depth decoder alone, no cascade and no host sync),
      and a timed run long enough for a warm window of about a second; for
      p = 0.01 and 0.1 a CUDA-event breakdown of a chunk;
      then the same entry point with BP on 2 chunks, which drives kernel D's
@@ -186,7 +187,7 @@ Phases (any failure raises and exits non-zero):
      (phase 7's), config 4 at p = 0.01 and 0.1 (phase 13's) and config 5
      on kernels F and C (QLDPC_QC_STACKED=1, the run without the gate in
      this phase); for each path and its in-chunk twin the launches and
-     host syncs (torch.nonzero) per chunk, the head stages' lanes, the
+     host syncs (torch.nonzero) per chunk, the head's cap, the
      deferred records, the overflowed chunks and the tail's lanes and
      windows; warm shots/s with and without the gate in turns, each window
      about a second (the flagship on 1,048,576 shots three times, config 4
@@ -219,8 +220,9 @@ Phases (any failure raises and exits non-zero):
      core for MS and BP with OSD, numpy for BF and NG) at a fifth of its
      shots; every row within 4 sigma, each row's seconds on both sides,
      and kernels A, B (MS and BP), C and D (MS) launched by the rows;
- 33. the straggler cascade on kernel B: the full-depth path (one launch a
-     side) against the stages (the tail compacted and decoded in windows
+ 33. the straggler cascade on kernel B: the pipeline's sides, each its
+     full-depth decoder alone (one launch a side), against a pipeline built
+     with the cascade's stages (the tail compacted and decoded in windows
      on the host), both sides of a chunk, MS-L-50 at p = 0.05 and BP-F-99
      at p = 0.03 on lp118_0, 8 chunks of the flagship's keys: results
      equal bit for bit; per path, in turns, the wall ms a chunk, the host
@@ -579,8 +581,9 @@ def breakdown(pipe, p, names, smi, chunks=BREAKDOWN_CHUNKS, p_index=0,
 
 
 def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
-    """Phase 33: the straggler cascade on kernel B, the full-depth path
-    (`Cascade.forward_full`) against the stages (`forward_stages`), both
+    """Phase 33: the straggler cascade on kernel B, the full-depth decoder
+    alone, as `make_decoder` builds each side on the card, against the
+    stages (a pipeline built with `decoders._one_launch` answering no), both
     sides of a chunk, for the benchmark's two decoders on lp118_0 (MS-L-50
     at p = 0.05, BP-F-99 at p = 0.03). On `chunks` chunks of the flagship's
     keys: the results of both paths equal bit for bit, then per path, in
@@ -595,6 +598,7 @@ def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from qldpcsim_torch import decoders
     from qldpcsim_torch.codes import get_code
     from qldpcsim_torch.engine.montecarlo import ShotPipeline, SimConfig
     from qldpcsim_torch.ops import ms_qc_cuda
@@ -611,9 +615,17 @@ def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
                         dec_iterations=cap, dec_schedule=sched,
                         batch_size=BATCH, rng_seed=SEED, device="cuda")
         pipe = ShotPipeline(Hx, Hz, cfg)
-        sides = (pipe.dec_x, pipe.dec_z)
-        check(all(d.full_depth for d in sides),
-              f"33 {label}: both cascades take the full-depth path")
+        one_launch = decoders._one_launch
+        decoders._one_launch = lambda dec, device: False
+        try:
+            staged = ShotPipeline(Hx, Hz, cfg)
+        finally:
+            decoders._one_launch = one_launch
+        paths = {"full": (pipe.dec_x, pipe.dec_z),
+                 "stages": (staged.dec_x, staged.dec_z)}
+        check(all(type(d) is ms_qc_cuda.QCDecoder for d in paths["full"]),
+              f"33 {label}: each side is one kernel-B decoder")
+        sides = paths["stages"]
         key = fold_in(prng_key(SEED, device=pipe.device), 0)
         syns = [pipe._sample_chunk(chunk_keys(key, ci * tpc, tpc), p)[2:]
                 for ci in range(chunks)]
@@ -625,8 +637,8 @@ def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
                 if timed is not None:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                out.append([getattr(d, "forward_" + path)(s, prior)
-                            for d, s in ((pipe.dec_x, sz), (pipe.dec_z, sx))])
+                out.append([d(s, prior)
+                            for d, s in zip(paths[path], (sz, sx))])
                 if timed is not None:
                     timed.append(time.perf_counter() - t0)
             return out
@@ -637,7 +649,7 @@ def cascade_paths(smi, chunks=CASCADE_CHUNKS, rounds=2):
                 same &= all(torch.equal(getattr(ra, f), getattr(rb, f))
                             for f in ("e_hat", "n_iter", "converged",
                                       "posterior"))
-        check(same, f"33 {label}: the full-depth path equals the stages, "
+        check(same, f"33 {label}: the full-depth decoder equals the stages, "
               "bit for bit")
         stats = {"stages": [], "full": []}
         for _ in range(rounds):
@@ -1317,8 +1329,8 @@ def main():
                        OLD["flagship shots/s"])
     breakdown(pipe, P_POINT, ("channel", "decode X", "decode Z", "classify"),
               smi)
-    print(f"  lanes per cascade stage {pipe.dec_x.stages}: X "
-          f"{pipe.dec_x.stage_lanes}, Z {pipe.dec_z.stage_lanes}")
+    check(type(pipe.dec_x) is type(pipe.dec_z) is ms_qc_cuda.QCDecoder,
+          "flagship: each side is one kernel-B decoder, no cascade")
 
     # 8. cross-device: the flagship's first chunks on the CPU and the card
     phase("8 flagship cross-device")
@@ -1591,8 +1603,6 @@ def main():
     check(pipe4.batch == BATCH, f"config-4 chunk {pipe4.batch}")
     prev_q = -1.0
     for i, pT in enumerate(C4_P):
-        for d in (pipe4.dec_x, pipe4.dec_z):
-            d.full_calls = d.syncs = 0
         before = read_launches()
         r = simulate_p(Tx, Tz, pT, cfg4, pipeline=pipe4, p_index=i)
         after = read_launches()
@@ -1605,12 +1615,10 @@ def main():
               f"{res4[i].shots_per_s_warm:.1f}); launches "
               f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }"
               f"  [{smi}]")
-        print(f"    full-depth launches X {pipe4.dec_x.full_calls} Z "
-              f"{pipe4.dec_z.full_calls}, cascade host syncs X "
-              f"{pipe4.dec_x.syncs} Z {pipe4.dec_z.syncs}, over "
-              f"{C4_SHOTS // BATCH} chunks")
-        check(pipe4.dec_x.syncs == pipe4.dec_z.syncs == 0,
-              f"p={pT}: kernel D's cascade makes no host sync")
+        n_ch4 = -(-C4_SHOTS // pipe4.batch)
+        check(after["seq_qc MS"] - before["seq_qc MS"] == 2 * n_ch4,
+              f"p={pT}: one kernel-D launch a side in each of {n_ch4} "
+              "chunks")
         c = r.counters
         check(c["decSuccessExact"] + c["DecFailures_X"] <= C4_SHOTS
               and c["successStabilizer"] >= c["decSuccessExact"],
@@ -1625,8 +1633,8 @@ def main():
             breakdown(pipe4, pT, ("channel", "decode X", "decode Z",
                                   "classify"), smi,
                       chunks=C4_BREAKDOWN_CHUNKS, p_index=i)
-    check(pipe4.dec_x.full_calls > 0 and pipe4.dec_z.full_calls > 0,
-          f"kernel D's cascade took the full-depth launch at p={C4_P[-1]}")
+    check(type(pipe4.dec_x) is type(pipe4.dec_z) is seq_qc_cuda.SeqQCDecoder,
+          "config 4: each side is one kernel-D decoder, no cascade")
     check(res4[0].qbler < 0.01 and res4[-1].qbler > 0.5,
           "config-4 qBLER spans the waterfall")
     # the same entry point with BP: kernel D's other kind on a main path
@@ -2665,8 +2673,7 @@ def main():
             gc.deferred = gc.gc_overflows = gc.syncs = 0
             gc.tail_lanes = {"x": 0, "z": 0}
             gc.tail_windows = {"x": 0, "z": 0}
-        for casc in ((gc.head_x, gc.head_z) if gc is not None
-                     else (pipe_.dec_x, pipe_.dec_z)):
+        for casc in (pipe_.dec_x, pipe_.dec_z):
             if hasattr(casc, "stage_lanes"):
                 casc.stage_lanes = [0] * len(casc.stages)
         pipe_.osd_syncs = 0
@@ -2688,12 +2695,8 @@ def main():
               f"per chunk {per}; host syncs (torch.nonzero) per chunk "
               f"{nonzero_calls[0] / n_ch:.2f}")
         if gc is not None:
-            lanes = (f"head stage lanes {gc.head_x.stages}: X "
-                     f"{gc.head_x.stage_lanes}, Z {gc.head_z.stage_lanes}; "
-                     if hasattr(gc.head_x, "stage_lanes") else
-                     f"head: the plain {gc.head_x.max_iter}-iteration "
-                     "decoder; ")
-            print(f"  group cascade: {lanes}records deferred {gc.deferred}; "
+            print(f"  group cascade: head the {gc.head_x.max_iter}-iteration "
+                  f"decoder alone; records deferred {gc.deferred}; "
                   f"overflowed chunks {gc.gc_overflows} of {n_ch} (cap "
                   f"{gc.defer_cap}); tail lanes X {gc.tail_lanes['x']} Z "
                   f"{gc.tail_lanes['z']} in windows X "
@@ -2830,9 +2833,9 @@ def main():
     gc_breakdown("flagship", pipe_gc, P_POINT, BREAKDOWN_CHUNKS)
     # (b) config 4 at p = 0.01 and 0.1 against phase 13's sweep
     pipe4_gc = build(Tx, Tz, cfg4, gate)
-    check(not pipe4_gc.group_cascade.head_x.highp_guard
-          and pipe4.dec_x.highp_guard,
-          "config 4: the head has no high-p guard, the in-chunk cascade has")
+    check(type(pipe4_gc.group_cascade.head_x) is seq_qc_cuda.SeqQCDecoder
+          and pipe4_gc.group_cascade.head_x.max_iter == 10,
+          "config 4: the head is kernel D's 10-iteration decoder alone")
     for i in (0, len(C4_P) - 1):
         counted(f"config 4 p={C4_P[i]}, in-chunk cascade", Tx, Tz, C4_P[i],
                 cfg4, pipe4, p_index=i)
@@ -3090,7 +3093,7 @@ def main():
           f"[{smi}]")
     print(f"phase 32: {time.perf_counter() - t_par:.1f} s")
 
-    # 33. the cascade on kernel B: one full-depth launch against the stages
+    # 33. the cascade on kernel B: one full-depth decoder against the stages
     phase("33 the cascade on kernel B: full depth against the stages")
     cascade_paths(smi)
     t_mesh = time.perf_counter()

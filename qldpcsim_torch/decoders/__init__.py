@@ -3,8 +3,8 @@
 Decoder families: NG (naive-greedy, `ng.py`), BF (bit-flipping, `bf.py`),
 MS (normalized min-sum) and BP (tanh-product sum-product), the last two
 under the flooding (F), layered (L) and serial (S) schedules, wrapped in the
-straggler cascade when the iteration budget is deep, and the OSD
-post-decoder (`osd.py`). `make_decoder` routes MS and BP as the reference
+straggler cascade when the iteration budget is deep and one full-depth call
+would not do (`_one_launch`), and the OSD post-decoder (`osd.py`). `make_decoder` routes MS and BP as the reference
 does, without its TPU gate (on a CUDA device a kernel runs, on the CPU its
 plain version):
 
@@ -21,6 +21,8 @@ plain version):
   * else, and for `impl="edge"`, the edge-layout decoders (`ms.py`,
     `bp.py`).
 """
+
+import torch
 
 from qldpcsim_torch.decoders.common import (
     DecodeResult,
@@ -154,12 +156,24 @@ def _factory(graph, cfg, eff_layers, kind, device):
     return edge
 
 
+def _one_launch(decoder, device) -> bool:
+    """Whether one full-depth call of `decoder` on `device` is enough: the
+    decoder reports `one_launch` (a kernel whose every shot leaves the
+    launch at its own convergence, measured against the cascade's stages on
+    the card) and `device` is a CUDA device. The plain versions run their
+    batch in lockstep until every shot has converged, so on the CPU the
+    cascade's stages save work."""
+    return (torch.device(device).type == "cuda"
+            and getattr(decoder, "one_launch", False))
+
+
 def make_decoder(graph, cfg, layers=None, device="cpu"):
     """decode(syndromes, p) -> DecodeResult for `cfg.dec_type` over `graph`
     (the reference's `make_decoder`).
 
     Syndromes are (B, m) tensors on `device`. Deep iteration budgets of MS
-    and BP get the straggler cascade (decoders/cascade.py)."""
+    and BP get the straggler cascade (decoders/cascade.py), unless the
+    full-depth decoder alone is enough there (`_one_launch`)."""
     from qldpcsim_torch.decoders.cascade import make_cascade, make_tworound
 
     kind = cfg.dec_type.upper()
@@ -176,9 +190,10 @@ def make_decoder(graph, cfg, layers=None, device="cpu"):
     eff_layers = (layers if layers is not None
                   else build_layers(graph.H, cfg.schedule.upper()))
     factory = _factory(graph, cfg, eff_layers, kind, device)
+    full = factory(graph, cfg, layers=eff_layers)
     r1 = cfg.round1_iters
-    if r1 < 0 or cfg.max_iter <= 12:
-        return factory(graph, cfg, layers=eff_layers)
+    if r1 < 0 or cfg.max_iter <= 12 or _one_launch(full, device):
+        return full
     if r1 > 0:
         return make_tworound(factory, graph, cfg, eff_layers, r1,
                              cfg.compact_cap_frac)

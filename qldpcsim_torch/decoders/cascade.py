@@ -10,21 +10,10 @@ reproduces the continued trajectory exactly: results, posteriors and
 iteration counts are bit-identical to one full-depth decode, whatever the
 windows.
 
-That last fact picks the path. Kernels B (a `QCDecoder` on the card, not
-`stacked`) and D (a `SeqQCDecoder` on the card) give every shot a block or
-warp of its own, which leaves its loop at the shot's convergence or latch:
-one full-depth launch over the batch already costs each shot only its own
-iterations, the card's block scheduler refills a slot as soon as its shot
-leaves, and the refinement stages would decode the stragglers again, with a
-host synchronisation each. There the cascade is one call of its last stage
-decoder (`forward_full`), and no count reaches the host. Every other
-decoder keeps the stages (`forward_stages`): the reference's
+`make_decoder` skips the cascade where one full-depth launch suffices
+(`decoders/__init__.py::_one_launch`). Here the reference's
 `lax.while_loop` over windows becomes a Python loop whose trip count comes
-from `n_failed`, one host synchronisation per refinement stage reached. The
-plain versions on the CPU (kernel B's and D's included) run their batch in
-lockstep, so there the stages save work. Kernels E and F give each shot a
-block that leaves at convergence too; they keep the stages because no
-benchmark cell measures them against one full-depth launch.
+from `n_failed`, one host synchronisation per refinement stage reached.
 
 Serial schedules carry the reference's high-p guard: when more than 2/3 of
 the batch fails the head, the shallow intermediate stages cannot pay for
@@ -32,9 +21,7 @@ themselves, so they are skipped and the tail is decoded once at full depth,
 in windows of the second stage's size. The reference gates two window loops
 without a conditional; here it is a plain `if` on the `n_failed` the cascade
 brings to the host anyway. It changes no result: a from-scratch full-depth
-decode of a failed lane gives the same e_hat, n_iter and posterior. The
-full-depth path runs no stage, so it skips none and the guard has nothing
-to do there.
+decode of a failed lane gives the same e_hat, n_iter and posterior.
 """
 
 from __future__ import annotations
@@ -46,8 +33,6 @@ import torch
 from torch import nn
 
 from qldpcsim_torch.decoders.common import DecodeResult
-from qldpcsim_torch.ops.ms_qc_cuda import QCDecoder
-from qldpcsim_torch.ops.seq_qc_cuda import SeqQCDecoder
 from qldpcsim_torch.utils.profiling import span
 
 
@@ -92,34 +77,12 @@ class Cascade(nn.Module):
         self.decs = nn.ModuleList(decoders)
         self.stages = list(stages)
         self.highp_guard = highp_guard and len(self.stages) > 2
-        # every stage decoder is kernel B's or D's, whose shots each leave
-        # the launch at their own convergence or latch: on the card, one
-        # full-depth launch
-        self.full_depth = all(
-            isinstance(d, SeqQCDecoder)
-            or (isinstance(d, QCDecoder) and not d.stacked) for d in decoders)
-        self.full_calls = 0  # calls that took the one full-depth launch
         self.guard_fired = 0  # calls in which the high-p guard took over
-        # lanes decoded per stage; the full-depth path counts its batch as
-        # the head's
-        self.stage_lanes = [0] * len(self.stages)
+        self.stage_lanes = [0] * len(self.stages)  # lanes decoded per stage
         self.syncs = 0  # host syncs: one per refinement stage reached
         self.windows = 0  # refinement windows decoded
 
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
-        if self.full_depth and syndromes.is_cuda:
-            return self.forward_full(syndromes, p)
-        return self.forward_stages(syndromes, p)
-
-    def forward_full(self, syndromes: torch.Tensor, p) -> DecodeResult:
-        """The whole batch in one call of the full-depth stage decoder."""
-        with span("qldpc.cascade.head"):
-            r = self.decs[-1](syndromes, p)
-        self.stage_lanes[0] += syndromes.shape[0]
-        self.full_calls += 1
-        return r
-
-    def forward_stages(self, syndromes: torch.Tensor, p) -> DecodeResult:
         """The stages as a host loop over windows of the sorted tail."""
         B = syndromes.shape[0]
         with span("qldpc.cascade.head"):

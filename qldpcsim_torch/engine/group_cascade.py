@@ -1,17 +1,17 @@
 """Group-deferred cascade: stragglers finish once per key group (port of
 `qldpcsim_tpu/engine/group_cascade.py`; opt-in, `QLDPC_GROUP_CASCADE=1`).
 
-The head stages of the straggler cascade run in the chunk (for MS-L-50 the
-4- and 10-iteration stages, for BP-16 the 4-iteration one). A shot that did
-not converge on both sides after the head is a straggler: its record (both
-errors, both syndromes, both head estimates and both converged flags) waits,
-and the stragglers of many chunks finish together, each side's unconverged
-records decoded from scratch at full depth in dense windows, with OSD on
-the window's still-unconverged shots when it is on. MS and BP decode each
-shot on its own and deterministically, so every shot gets the in-chunk
-cascade's result (the head's where it converged, else a from-scratch
-full-depth decode) and the counters are the in-chunk path's, iterations
-included.
+The head runs in the chunk: one decode at the cap of the straggler
+cascade's last stage but one (10 iterations for MS-L-50, 4 for BP-16). A
+shot that did not converge on both sides after the head is a straggler:
+its record (both errors, both syndromes, both head estimates and both
+converged flags) waits, and the stragglers of many chunks finish together,
+each side's unconverged records decoded from scratch at full depth in
+dense windows, with OSD on the window's still-unconverged shots when it is
+on. MS and BP decode each shot on its own and deterministically, so every
+shot gets the in-chunk cascade's result (the head's where it converged,
+else a from-scratch full-depth decode) and the counters are the in-chunk
+path's, iterations included.
 
 The reference extracts records with a one-hot matmul and, when a chunk has
 more stragglers than its fixed deferral capacity, re-runs the whole dispatch
@@ -24,13 +24,15 @@ same decision tree and without sampling anything again.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from qldpcsim_torch.decoders.cascade import Cascade
+from qldpcsim_torch.decoders import make_decoder
+from qldpcsim_torch.decoders.cascade import default_stages
 from qldpcsim_torch.utils.profiling import span
 
 ENV = "QLDPC_GROUP_CASCADE"
@@ -52,33 +54,31 @@ def enabled(dcfg) -> bool:
 
 
 class GroupCascade:
-    """The group-deferred cascade of one `ShotPipeline` (no mesh) whose
-    `dec_x` and `dec_z` are cascades: the head and tail of each side, taken
-    from their stage decoders, and the chunk and finish bodies.
+    """The group-deferred cascade of one `ShotPipeline` (no mesh): the head
+    and tail decoders of each side, built by `make_decoder` from the
+    pipeline's graphs and layers, and the chunk and finish bodies.
 
     Counts of the run: `deferred` (records that waited for a finish),
     `gc_overflows` (chunks whose stragglers exceeded `defer_cap`),
     `tail_lanes` and `tail_windows` per side (full-depth decodes in the
-    finish), `syncs` (host syncs of this module: one `torch.nonzero` per
-    chunk and per side of a finish) and, through `head_x.stage_lanes`, the
-    lanes of each head stage when the head is a cascade."""
+    finish) and `syncs` (host syncs of this module: one `torch.nonzero` per
+    chunk and per side of a finish)."""
 
     def __init__(self, pipe):
         self.pipe = pipe
-        # the stage decoders of the pipeline's own cascades: all but the
-        # full-depth stage run in the chunk (the head), the full-depth one
-        # finishes the stragglers (the tail). A two-stage head has no high-p
-        # guard (`Cascade` needs more than two stages for one), as in the
-        # reference.
-        split = len(pipe.dec_x.stages) - 1
+        # the head stops where the cascade's full-depth stage would start;
+        # the tail is the full-depth decoder alone
+        dcfg = pipe.dcfg
+        head = dataclasses.replace(
+            dcfg, max_iter=default_stages(dcfg.max_iter)[-2][0])
+        tail = dataclasses.replace(dcfg, round1_iters=-1)
 
-        def head(casc):
-            if split == 1:
-                return casc.decs[0]
-            return Cascade(list(casc.decs[:split]), casc.stages[:split])
+        def decoders(graph, layers):
+            return [make_decoder(graph, c, layers=layers, device=pipe.device)
+                    for c in (head, tail)]
 
-        self.head_x, self.head_z = head(pipe.dec_x), head(pipe.dec_z)
-        self.tail_x, self.tail_z = pipe.dec_x.decs[-1], pipe.dec_z.decs[-1]
+        self.head_x, self.tail_x = decoders(pipe.graph_x, pipe.layers_x)
+        self.head_z, self.tail_z = decoders(pipe.graph_z, pipe.layers_z)
         self.defer_cap = min(pipe.per_dev, DEFER_CAP)
         self.window = TAIL_WINDOW
         self.deferred = 0

@@ -281,20 +281,23 @@ class ShotPipeline(nn.Module):
         self.device = _resolve_device(cfg.device)
 
         # X errors are decoded through Hz, Z errors through Hx. BF and NG
-        # have no schedule.
-        layers_x = layers_z = None
+        # have no schedule. The group cascade builds its decoders from the
+        # same graphs and layers.
+        self.layers_x = self.layers_z = None
         if dcfg.dec_type.upper() in ("MS", "BP"):
             sched = dcfg.schedule.upper()
-            layers_x = build_layers(
+            self.layers_x = build_layers(
                 self.Hz, sched,
                 H_layerize=self.Hx if cfg.layer_compat else None)
-            layers_z = build_layers(
+            self.layers_z = build_layers(
                 self.Hx, sched,
                 H_layerize=self.Hz if cfg.layer_compat else None)
-        self.dec_x = make_decoder(TannerGraph.build(self.Hz), dcfg,
-                                  layers=layers_x, device=self.device)
-        self.dec_z = make_decoder(TannerGraph.build(self.Hx), dcfg,
-                                  layers=layers_z, device=self.device)
+        self.graph_x = TannerGraph.build(self.Hz)
+        self.graph_z = TannerGraph.build(self.Hx)
+        self.dec_x = make_decoder(self.graph_x, dcfg, layers=self.layers_x,
+                                  device=self.device)
+        self.dec_z = make_decoder(self.graph_z, dcfg, layers=self.layers_z,
+                                  device=self.device)
         self.use_osd = (cfg.osd_order >= 0
                         and dcfg.dec_type.upper() in ("MS", "BP"))
         if self.use_osd:

@@ -254,6 +254,10 @@ class GHDecoder(nn.Module):
     seen); `tables_in_shared` and `smem_bytes` follow from them.
     """
 
+    # each shot leaves the launch at its own convergence, but no benchmark
+    # cell has measured one full-depth launch against the cascade's stages
+    one_launch = False
+
     def __init__(self, H: np.ndarray, cfg: DecoderConfig,
                  layers: Optional[LayerSchedule] = None, device="cpu",
                  kind: str = "MS"):

@@ -518,6 +518,14 @@ class QCDecoder(nn.Module):
                 buf(f"hcol{i}", H[:, t.gather_index(i).reshape(-1)],
                     torch.float32)
 
+    @property
+    def one_launch(self) -> bool:
+        """Kernel B: each shot leaves its block's loop at its own
+        convergence, so one full-depth launch is enough on the card. Kernel
+        F (`stacked`) leaves at convergence too, but no benchmark cell has
+        measured it against the cascade's stages."""
+        return not self.stacked
+
     def forward(self, syndromes: torch.Tensor, p) -> DecodeResult:
         if self.stacked:
             post, n_iter, conv = flood_qc_cuda.flood_qc(

@@ -348,6 +348,10 @@ class SeqQCDecoder(nn.Module):
     to the largest batch seen (set it to True to force that variant).
     """
 
+    # each shot's warp leaves the launch at its own latch, so one
+    # full-depth launch is enough on the card
+    one_launch = True
+
     def __init__(self, st: QCStructure, cfg: DecoderConfig,
                  layers: Optional[LayerSchedule] = None, device="cpu",
                  kind: str = "MS"):

@@ -409,10 +409,7 @@ def host_syncs(pipe: ShotPipeline) -> Dict[str, int]:
     stage reached and side, the group cascade's own) and its OSD
     compactions'."""
     gc = pipe.group_cascade
-    decs = [pipe.dec_x, pipe.dec_z]
-    if gc is not None:
-        decs += [gc.head_x, gc.head_z]
-    cascade = sum(d.syncs for d in {id(d): d for d in decs}.values()
+    cascade = sum(d.syncs for d in (pipe.dec_x, pipe.dec_z)
                   if isinstance(d, Cascade))
     if gc is not None:
         cascade += gc.syncs

@@ -1319,10 +1319,12 @@ CASCADE_VARIANTS = {
 }
 
 
-def _kernel_b_cascades(H, device, variant):
-    """Two cascades of kernel-B decoders of one variant (one for each path)
-    and the full-depth decoder."""
-    from qldpcsim_torch.decoders import TannerGraph
+def _kernel_b_sides(H, device, variant, monkeypatch):
+    """The side `make_decoder` builds on the card for one variant of kernel
+    B (the state's dtype and the writeback read from the environment, the
+    device-memory state forced), and a cascade of the same decoders built
+    explicitly, which runs its stages there."""
+    from qldpcsim_torch.decoders import TannerGraph, make_decoder
     from qldpcsim_torch.decoders.cascade import make_cascade
 
     kind, sched, cap, chk, dtype, vec, gmem = CASCADE_VARIANTS[variant]
@@ -1337,11 +1339,16 @@ def _kernel_b_cascades(H, device, variant):
         return d
 
     graph, layers = TannerGraph.build(H), build_layers(H, sched)
-    out = [make_cascade(factory, graph, cfg, layers) for _ in range(2)]
-    full = factory(graph, cfg, layers=layers)
-    assert full.vec == vec and full.track_mis == (chk == "layer")
-    assert full.state_on_device == gmem
-    return out + [full]
+    if dtype == torch.bfloat16:
+        monkeypatch.setenv("QLDPC_QC_DTYPE", "bf16")
+    if vec:
+        monkeypatch.setenv("QLDPC_QC_VEC", "1")
+    dec = make_decoder(graph, cfg, layers=layers, device=device)
+    assert type(dec) is ms_qc_cuda.QCDecoder and dec.max_iter == cap
+    assert dec.state_dtype == dtype and dec.vec == vec
+    assert dec.track_mis == (chk == "layer")
+    dec.state_on_device = dec.state_on_device or gmem
+    return dec, make_cascade(factory, graph, cfg, layers)
 
 
 def _same_result(a, b):
@@ -1353,42 +1360,34 @@ def _same_result(a, b):
 @pytest.mark.parametrize("chunk", ["none", "some", "all", "partial"])
 @pytest.mark.parametrize("variant", list(CASCADE_VARIANTS))
 def test_cascade_full_depth_equals_stages_on_card(cuda_device, variant,
-                                                  chunk):
-    """The cascade on kernel B: one full-depth launch whose results equal,
-    bit for bit, the stages' (`forward_stages`) and the full-depth
-    decoder's, with no host sync and the batch counted as the head's
-    lanes; for chunks where no lane, some lanes or every lane fails the
-    head, and a partial chunk."""
-    from qldpcsim_torch.decoders.cascade import Cascade
-
+                                                  chunk, monkeypatch):
+    """Kernel B's side on the card is its full-depth decoder alone
+    (`make_decoder`): one launch whose results equal, bit for bit, those
+    of the cascade's stages run on the card; for chunks where no lane, some
+    lanes or every lane fails the head, and a partial chunk."""
     H = np.asarray(get_code("lp118_0").Hz) % 2
-    casc, host, full = _kernel_b_cascades(H, cuda_device, variant)
-    assert isinstance(casc, Cascade) and casc.full_depth
+    dec, casc = _kernel_b_sides(H, cuda_device, variant, monkeypatch)
     p_err = {"none": 0.002, "some": 0.05, "all": 0.3, "partial": 0.05}[chunk]
     syns = [_syndromes(17, H, 4096, p_err, cuda_device)]
     if chunk == "partial":
         syns.append(syns[0][:1000].clone())
         syns[1][700:] = 0
     prior = np.float32(0.05) / np.float32(3.0)
-    kind = casc.decs[0].kind
+    kind = dec.kind
     for syn in syns:
         before = dict(ms_qc_cuda.LAUNCHES)
-        r_casc = casc(syn, prior)
+        r_full = dec(syn, prior)
         assert ms_qc_cuda.LAUNCHES == dict(before, **{kind: before[kind] + 1})
-        r_host = host.forward_stages(syn, prior)
-        r_full = full(syn, prior)
+        r_stages = casc(syn, prior)
         torch.cuda.synchronize()
-        _same_result(r_casc, r_full)
-        _same_result(r_host, r_full)
+        _same_result(r_full, r_stages)
         head_fail = int((r_full.n_iter > casc.stages[0][0]).sum())
         n = syn.shape[0]
         assert {"none": head_fail == 0, "some": 0 < head_fail < n,
                 "all": head_fail == n,
                 "partial": 0 < head_fail < n}[chunk]
-    n_shots = sum(s.shape[0] for s in syns)
-    assert casc.stage_lanes == [n_shots] + [0] * (len(casc.stages) - 1)
-    assert host.stage_lanes[0] == n_shots
-    assert casc.syncs == 0 and host.syncs > 0
+    assert casc.stage_lanes[0] == sum(s.shape[0] for s in syns)
+    assert casc.syncs > 0
 
 
 @pytest.mark.cuda
@@ -1397,9 +1396,11 @@ def test_cascade_full_depth_equals_stages_on_card(cuda_device, variant,
 def test_simulate_p_full_depth_counts_as_stages_on_card(
         cuda_device, monkeypatch, kind, sched, cap, p):
     """`simulate_p` on lp118_0 (the benchmark's two decoders, 2 chunks of
-    4096): the full-depth path's counters and iterations equal the stages'
-    on the same seed, with one kernel-B launch per side and chunk and no
-    cascade sync."""
+    4096): each side of the pipeline is one kernel-B decoder, launched once
+    per chunk, and its counters and iterations equal those of a pipeline
+    whose sides run the cascade's stages on the card, on the same seed; both
+    name their decoders alike."""
+    from qldpcsim_torch import decoders
     from qldpcsim_torch.decoders.cascade import Cascade
 
     c = get_code("lp118_0")
@@ -1407,16 +1408,21 @@ def test_simulate_p_full_depth_counts_as_stages_on_card(
                     dec_schedule=sched, batch_size=4096, rng_seed=19,
                     device="cuda")
     pipe = ShotPipeline(c.Hx, c.Hz, cfg)
-    assert pipe.dec_x.full_depth and pipe.dec_z.full_depth
+    assert type(pipe.dec_x) is type(pipe.dec_z) is ms_qc_cuda.QCDecoder
     before = ms_qc_cuda.LAUNCHES[kind]
     full = simulate_p(c.Hx, c.Hz, p, cfg, pipeline=pipe)
     assert ms_qc_cuda.LAUNCHES[kind] - before == 2 * 2
-    assert pipe.dec_x.syncs == pipe.dec_z.syncs == 0
-    monkeypatch.setattr(Cascade, "forward", Cascade.forward_stages)
-    stages = simulate_p(c.Hx, c.Hz, p, cfg)
+    monkeypatch.setattr(decoders, "_one_launch", lambda dec, device: False)
+    staged = ShotPipeline(c.Hx, c.Hz, cfg)
+    assert isinstance(staged.dec_x, Cascade)
+    stages = simulate_p(c.Hx, c.Hz, p, cfg, pipeline=staged)
+    assert staged.dec_x.syncs > 0
     assert full.counters == stages.counters
     assert full.avg_iterations_x == stages.avg_iterations_x
     assert full.avg_iterations_z == stages.avg_iterations_z
+    assert ([montecarlo._decoder_choice(d) for d in (pipe.dec_x, pipe.dec_z)]
+            == [montecarlo._decoder_choice(d)
+                for d in (staged.dec_x, staged.dec_z)])
 
 
 @pytest.mark.cuda
@@ -1426,12 +1432,16 @@ def test_simulate_p_full_depth_counts_as_stages_on_card(
                          ids=["tanner-MS", "tanner-BP", "lp04_0-MS"])
 def test_kernel_d_cascade_full_depth_equals_stages_on_card(cuda_device, code,
                                                            kind, shots, p):
-    """The serial-schedule cascade on kernel D (30 iterations, one chunk of
-    the pipeline's own sampling): each side is one full-depth launch, with
-    no host sync, no window and the high-p guard idle, whose results equal,
-    bit for bit, the stages' (where the guard fires). The Tanner chunk is
-    the benchmark cell's (p 0.10); lp04_0's 256 shots, at p 0.20 so that
-    the guard fires there too, are fewer than the card holds at once."""
+    """The serial schedule on kernel D (30 iterations, one chunk of the
+    pipeline's own sampling): each side of the pipeline is one kernel-D
+    decoder, one launch, whose results equal, bit for bit, those of the
+    guarded cascade's stages run on the card (where the guard fires). The
+    Tanner chunk is the benchmark cell's (p 0.10); lp04_0's 256 shots, at
+    p 0.20 so that the guard fires there too, are fewer than the card holds
+    at once."""
+    from qldpcsim_torch.decoders import TannerGraph
+    from qldpcsim_torch.decoders.cascade import make_cascade
+
     c = get_code(code)
     cfg = SimConfig(shots=shots, dec_type=kind, dec_iterations=30,
                     dec_schedule="S", batch_size=shots, rng_seed=23,
@@ -1441,20 +1451,22 @@ def test_kernel_d_cascade_full_depth_equals_stages_on_card(cuda_device, code,
     key = fold_in(prng_key(23, device=pipe.device), 0)
     sy_z, sy_x = pipe._sample_chunk(chunk_keys(key, 0, shots // 64), p)[2:]
     prior = np.float32(p) / np.float32(3.0)
-    for casc, syn in ((pipe.dec_x, sy_z), (pipe.dec_z, sy_x)):
-        assert casc.full_depth and casc.highp_guard
-        assert all(isinstance(d, seq_qc_cuda.SeqQCDecoder)
-                   for d in casc.decs)
+    for dec, syn, H in ((pipe.dec_x, sy_z, pipe.Hz), (pipe.dec_z, sy_x,
+                                                       pipe.Hx)):
+        assert type(dec) is seq_qc_cuda.SeqQCDecoder and dec.kind == kind
+        st, layers = detect_qc(H), build_layers(H, "S")
+        casc = make_cascade(
+            lambda g, c_, layers=None: seq_qc_cuda.make_seq_qc_decoder(
+                st, c_, layers=layers, device=cuda_device, kind=kind),
+            TannerGraph.build(H), pipe.dcfg, layers)
+        assert casc.highp_guard
         before = dict(seq_qc_cuda.LAUNCHES)
-        r_full = casc(syn, prior)
+        r_full = dec(syn, prior)
         assert seq_qc_cuda.LAUNCHES == dict(before,
                                             **{kind: before[kind] + 1})
-        assert casc.full_calls == 1 and casc.stage_lanes == [shots, 0, 0]
-        assert casc.syncs == casc.windows == casc.guard_fired == 0
-        r_stages = casc.forward_stages(syn, prior)
+        r_stages = casc(syn, prior)
         torch.cuda.synchronize()
         _same_result(r_full, r_stages)
         assert int((r_full.n_iter > casc.stages[0][0]).sum()) > (
             2 * shots) // 3
         assert casc.guard_fired == 1 and casc.syncs == 1
-        assert casc.full_calls == 1

@@ -17,6 +17,7 @@ from qldpcsim_tpu.engine.montecarlo import SimConfig as RefSimConfig
 from qldpcsim_tpu.engine.montecarlo import simulate_p as ref_simulate_p
 
 from qldpcsim_torch.decoders import DecoderConfig
+from qldpcsim_torch.decoders.cascade import Cascade
 from qldpcsim_torch.engine import group_cascade, montecarlo
 from qldpcsim_torch.engine.montecarlo import (
     ShotPipeline,
@@ -93,8 +94,8 @@ def test_min_sum_equals_in_chunk_and_jax(monkeypatch, lp04, pending_max,
     gc = pipe.group_cascade
     assert gc is not None and gc.gc_overflows == 0
     assert gc.deferred > 0 and gc.tail_lanes["x"] > 0
-    assert gc.head_x.stages == [(4, 1.0), (10, 0.125)]
-    assert gc.head_x.stage_lanes[0] == MS50["shots"]
+    assert not isinstance(gc.head_x, Cascade)
+    assert gc.head_x.max_iter == gc.head_z.max_iter == 10
     assert gc.syncs >= MS50["shots"] // MS50["batch_size"]
     if pending_max == 100:
         assert gc.tail_windows["x"] >= 2
@@ -191,7 +192,8 @@ def test_mesh_p_sweep_equals_the_serial_sweep(monkeypatch, lp04):
         cfg, mesh=make_mesh(["cpu"] * 2), mesh_p=2))
     assert len({id(gc.pipe) for gc in built}) == len(built) == 2
     assert all(gc.pipe.per_dev == base["batch_size"] for gc in built)
-    assert all(gc.head_x.stage_lanes[0] > 0 for gc in built)
+    assert all(not isinstance(gc.head_x, Cascade)
+               and gc.head_x.max_iter == 10 for gc in built)
     assert sum(gc.deferred for gc in built) > 0
     assert [_counters(r) for r in swept] == [_counters(r) for r in serial]
 
@@ -206,7 +208,7 @@ def test_serial_schedule(monkeypatch, lp04):
     new, pipe = _run(monkeypatch, lp04, 0.12, cfg, True)
     old, plain = _run(monkeypatch, lp04, 0.12, cfg, False)
     assert plain.dec_x.highp_guard and plain.dec_x.guard_fired > 0
-    assert not pipe.group_cascade.head_x.highp_guard
+    assert not isinstance(pipe.group_cascade.head_x, Cascade)
     assert pipe.group_cascade.deferred + pipe.group_cascade.gc_overflows > 0
     assert _counters(new) == _counters(old)
 
@@ -245,10 +247,10 @@ def test_gate(monkeypatch, lp04, dec_type, max_iter, env, want):
 ])
 def test_head_and_tail_are_the_pipelines_stage_decoders(
         monkeypatch, lp04, dec_type, max_iter, schedule, split):
-    """The head and tail of each side are the stage decoders of the
-    pipeline's own cascade, not decoders of their own: the head its first
-    `split` stages (a plain decoder when that is one), the tail its
-    full-depth one."""
+    """The head and tail of each side are bare decoders of the kernel the
+    pipeline's cascade stages use, the head at the cap of its stage
+    `split` (the cascade's last but one), the tail at full depth; neither
+    is a stage decoder of the pipeline's own, nor a cascade."""
     monkeypatch.setenv(GATE, "1")
     pipe = ShotPipeline(lp04.Hx, lp04.Hz, SimConfig(
         shots=64, dec_type=dec_type, dec_iterations=max_iter,
@@ -257,13 +259,10 @@ def test_head_and_tail_are_the_pipelines_stage_decoders(
     for casc, head, tail in ((pipe.dec_x, gc.head_x, gc.tail_x),
                              (pipe.dec_z, gc.head_z, gc.tail_z)):
         assert len(casc.stages) == split + 1
-        assert tail is casc.decs[-1] and tail.max_iter == max_iter
-        if split == 1:
-            assert head is casc.decs[0] and head.max_iter == 4
-        else:
-            assert head.stages == casc.stages[:split]
-            assert all(a is b for a, b in zip(head.decs, casc.decs))
-            assert not head.highp_guard
+        assert type(head) is type(tail) is type(casc.decs[0])
+        assert head.max_iter == casc.stages[split - 1][0]
+        assert tail.max_iter == max_iter
+        assert all(d is not head and d is not tail for d in casc.decs)
 
 
 @pytest.mark.parametrize("p", [0.02, 0.08, 0.14])
@@ -275,7 +274,9 @@ def test_min_sum_over_p(monkeypatch, lp04, p):
                     rng_seed=17, batch_size=256, device="cpu")
     new, pipe = _run(monkeypatch, lp04, p, cfg, True)
     old, _ = _run(monkeypatch, lp04, p, cfg, False)
-    assert pipe.group_cascade.head_x.stage_lanes[0] == 2 * cfg.batch_size
+    gc = pipe.group_cascade
+    assert not isinstance(gc.head_x, Cascade) and gc.head_x.max_iter == 10
+    assert gc.deferred + gc.gc_overflows > 0
     assert _counters(new) == _counters(old)
 
 

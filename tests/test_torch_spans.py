@@ -43,9 +43,10 @@ def _one_torch_thread():
 
 MS30 = dict(dec_type="MS", dec_iterations=30, dec_schedule="L", rng_seed=3,
             batch_size=256)
+CASCADE = {"qldpc.cascade.head", "qldpc.cascade.stage",
+           "qldpc.cascade.compact", "qldpc.cascade.window"}
 CHUNK = {"qldpc.job", "qldpc.group", "qldpc.readback", "qldpc.channel",
-         "qldpc.classify", "qldpc.cascade.head", "qldpc.cascade.stage",
-         "qldpc.cascade.compact", "qldpc.cascade.window"}
+         "qldpc.classify"} | CASCADE
 SIDES = {"qldpc.chunk", "qldpc.decode.x", "qldpc.decode.z"}
 # (code, p, SimConfig fields, group cascade on, the spans the run records)
 CASES = {
@@ -56,9 +57,10 @@ CASES = {
         osd_order=1, rng_seed=3, batch_size=256), False,
         CHUNK | SIDES | {"qldpc.osd", "qldpc.osd.compact", "qldpc.osd.defer",
                          "qldpc.osd.group"}),
+    # the group cascade's head and tail are bare decoders: no stage
     "group_cascade": ("steane", 0.1, dict(shots=1024, **MS30), True,
-                      CHUNK | {"qldpc.gcascade.chunk",
-                               "qldpc.gcascade.finish"}),
+                      CHUNK - CASCADE | {"qldpc.gcascade.chunk",
+                                         "qldpc.gcascade.finish"}),
     "mesh2": ("steane", 0.08, dict(shots=1024, mesh=make_mesh(["cpu"] * 2),
                                    **MS30), False,
               CHUNK | SIDES | {"qldpc.mesh.slot", "qldpc.mesh.wait",
